@@ -4,6 +4,11 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips with a reason without one")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
