@@ -8,17 +8,29 @@ without printing a result:
 1. card   — the card's name and power limit, torch and CUDA versions;
 2. build  — nvcc builds every kernel from the sources in this checkout
             and prints the -Xptxas -v report;
-3. kernel — each kernel against its plain PyTorch version on the card
+3. kernel — fused_cold_ffn against its plain PyTorch version on the card
             (ids identical but for fp64-confirmed near ties; y within
             2e-4 in fp32, 5e-2 in bf16, the reference's tolerances),
             then CUDA-event times beside the card's bound;
+   quant  — the same for its quant mode (int8 and int4-mixed codes; ids
+            identical), timed at the main path's shapes;
+   gather — cluster_gather_ffn and dense_ffn against their plain
+            versions (the reference's sweep, B up to 300, N = 1472 that
+            512 does not divide), timed beside the port's torch.matmul
+            composition of the same FFN;
 4. serve  — build_engine("smollm-135m", reduced=False, backend="pallas")
             serves a staggered stream of 4 greedy requests at full width
             (30 layers, bf16) through the kernel; the launch count must
-            be 30 per decode step;
+            be 30 per decode step; then the same at storage dtypes int8
+            and int4-mixed through the kernel's quant mode;
 5. parity — the same stream at full width in fp32 (4 layers) under the
-            "pallas" and "jnp" backends: identical tokens and traces;
-6. summary — a JSON line per kernel, then {"ok": true, "device": ...}.
+            "pallas" and "jnp" backends: identical tokens, TokenStats
+            and traces, at fp16 and at int4-mixed storage;
+6. api    — the kernel API at full width: over every layer of the model,
+            dense_ffn against its plain version and
+            cluster_gather_ffn_grouped over the clusters fused_cold_ffn
+            picked (relu mode) against fused_cold_ffn's output;
+7. summary — a JSON line of every kernel, then {"ok": true, ...}.
 
 It imports the port only (never jax or the JAX package) and runs on the
 card only: without one it exits non-zero at once.
@@ -39,10 +51,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.planner import PHONE, build_plan  # noqa: E402
 from repro_torch.kernels import build as kbuild, ops  # noqa: E402
+from repro_torch.core.sparse_ffn import _apply_bundle  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
-    fused_cold_ffn_ref, pick_disagreements)
+    cluster_gather_ffn_ref, dense_ffn_ref, fused_cold_ffn_ref,
+    pick_disagreements)
 from repro_torch.launch.serve import build_engine  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
+from repro_torch.quant.storage import quantize_bundles  # noqa: E402
 from repro_torch.serving.families import serving_family  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
@@ -57,6 +72,9 @@ MAIN = dict(D=576, r=64, cs=64, G=1, nc_g=23, R=3, kc=1, act="silu",
 STREAM = [(16, 0), (16, 0), (32, 3), (24, 6)]
 MAX_NEW = 16
 CTX = 64                           # KV slots per request: 32 + 16 fit
+QUANT = ("int8", "int4-mixed")
+# gather/dense timing shapes: one full-width FFN layer (N = d_ff)
+GATHER = dict(D=576, N=1536, R=3, cs=64, n_ids=12, act="silu")
 
 
 def card_line() -> str:
@@ -78,24 +96,30 @@ def kernel_inputs(B, D, r, cs, G, nc_g, R, dtype, seed):
             t(rng.standard_normal((r, G * nc_g * cs)) / np.sqrt(r)))
 
 
-def check_case(name, B, dtype, mask_kind="live", seed=0, **over):
+def check_case(name, B, dtype, mask_kind="live", seed=0, sd=None, **over):
+    """One fused_cold_ffn case against its plain version; `sd` (int8 or
+    int4-mixed) runs the quant mode on the codes of the same weights,
+    where the ids must be identical."""
     s = dict(MAIN, **over)
     x, wc, A, Bp = kernel_inputs(B, s["D"], s["r"], s["cs"], s["G"],
                                  s["nc_g"], s["R"], dtype, seed)
+    quant = {} if sd is None else quantize_bundles(wc, sd)
     mask = torch.ones(B, dtype=torch.bool, device="cuda")
     if mask_kind == "some":
         mask[1::2] = False
     elif mask_kind == "none":
         mask[:] = False
     y, idx = ops.fused_cold_ffn(x, wc, A, Bp, activation=s["act"],
-                                mode=s["mode"], kc=s["kc"], active_mask=mask)
+                                mode=s["mode"], kc=s["kc"], active_mask=mask,
+                                **quant)
     torch.cuda.synchronize()
     yr, ir = fused_cold_ffn_ref(x, wc, A, Bp, mask.float(),
                                 activation=s["act"],
-                                cats=s["mode"] == "cats", kc=s["kc"])
+                                cats=s["mode"] == "cats", kc=s["kc"],
+                                **quant)
     near, real = pick_disagreements(idx, ir, x, wc, A, Bp, mask.float())
-    if real:
-        raise AssertionError(f"{name}: picks differ beyond fp32 ties: {real}")
+    if real or (sd is not None and near):
+        raise AssertionError(f"{name}: picks differ: {real or near}")
     if mask_kind == "none" and idx.tolist() != [list(range(s["kc"]))] * s["G"]:
         raise AssertionError(f"{name}: all-dead batch picked {idx.tolist()}")
     err = float((y - yr).abs().max())
@@ -145,22 +169,31 @@ def graph_time_ms(fn, iters=200) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(B, dtype):
+def roofline(nbytes, ops_, dtype):
+    """(ms, what bounds it): the larger of bytes over the card's memory
+    rate and operations over its peak rate for the type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_ / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound(B, dtype, sd=None):
     """Least time for one call at the main path's shapes: every input
     byte the call needs read once (the kc picked bundles, not the whole
-    cold tensor), every output byte written once, against the card's
-    memory rate; its operations against the peak rate for the type."""
+    cold tensor: fp weights, or int8 codes with fp32 row scales and, for
+    int4-mixed, the fp16 sidecar), every output byte written once,
+    against the card's memory rate; its operations against the peak rate
+    for the type."""
     s = MAIN
     es = torch.empty((), dtype=dtype).element_size()
     Nc = s["G"] * s["nc_g"] * s["cs"]
     K = s["G"] * s["kc"] * s["cs"]
-    nbytes = (es * (B * s["D"] + s["D"] * s["r"] + s["r"] * Nc
-                    + K * s["R"] * s["D"])
+    w_bytes = {None: es, "int8": 1, "int4-mixed": 1 + 2}[sd] \
+        * K * s["R"] * s["D"] + (0 if sd is None else 4 * K * s["R"])
+    nbytes = (es * (B * s["D"] + s["D"] * s["r"] + s["r"] * Nc) + w_bytes
               + 4 * B + 4 * B * s["D"] + 4 * s["G"] * s["kc"])
     ops_ = 2 * B * (s["D"] * s["r"] + s["r"] * Nc + K * s["R"] * s["D"])
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops_ / PEAK_OPS_PER_S[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return roofline(nbytes, ops_, dtype)
 
 
 def phase_kernel():
@@ -204,6 +237,154 @@ def phase_kernel():
               f"{plain_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us "
               f"({b_by})")
     return max(errs), timings
+
+
+def phase_quant():
+    print("== phase 3 (quant): fused_cold_ffn quant mode against its "
+          "plain version")
+    bf16, f32 = torch.bfloat16, torch.float32
+    errs, timings = [], {}
+    for sd in QUANT:
+        for B in (1, 4, 32, 64):
+            errs.append(check_case(f"{sd} B={B} bf16", B, bf16, seed=B,
+                                   sd=sd))
+        errs.append(check_case(f"{sd} kc=4", 8, bf16, kc=4, seed=11, sd=sd))
+        errs.append(check_case(f"{sd} kc=23", 8, bf16, kc=23, seed=12,
+                               sd=sd))
+        errs.append(check_case(f"{sd} G=2", 16, bf16, G=2, nc_g=11, kc=3,
+                               seed=13, sd=sd))
+        errs.append(check_case(f"{sd} fp32", 16, f32, kc=2, seed=14, sd=sd))
+        errs.append(check_case(f"{sd} R=2 gelu", 5, f32, R=2, act="gelu",
+                               D=200, r=16, cs=32, nc_g=5, G=2, kc=2,
+                               seed=15, sd=sd))
+        errs.append(check_case(f"{sd} dead rows", 8, bf16, mask_kind="some",
+                               kc=4, seed=17, sd=sd))
+        for B in (1, 4, 32):
+            x, wc, A, Bp = kernel_inputs(
+                B, MAIN["D"], MAIN["r"], MAIN["cs"], MAIN["G"], MAIN["nc_g"],
+                MAIN["R"], bf16, seed=100 + B)
+            q = quantize_bundles(wc, sd)
+            mask = torch.ones(B, device="cuda")
+            kern = lambda: ops.fused_cold_ffn(x, wc, A, Bp, activation="silu",
+                                              mode="cats", kc=1, **q)
+            plain = lambda: fused_cold_ffn_ref(x, wc, A, Bp, mask,
+                                               activation="silu", cats=True,
+                                               kc=1, **q)
+            ms, dev_ms = cuda_time_ms(kern), graph_time_ms(kern)
+            plain_ms = cuda_time_ms(plain)
+            b_ms, b_by = bound(B, bf16, sd)
+            timings[(sd, B)] = dict(ms=ms, graph_ms=dev_ms,
+                                    plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by=b_by)
+            print(f"  {sd} B={B:2d} bf16: kernel {ms * 1e3:.2f} us/call "
+                  f"({dev_ms * 1e3:.2f} us in a CUDA graph), plain "
+                  f"{plain_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us "
+                  f"({b_by})")
+    return max(errs), timings
+
+
+def check_gather(B, D, N, R, cs, act, dtype, seed=0):
+    """cluster_gather_ffn over half the clusters and dense_ffn over all N
+    against their plain versions. Returns the larger max |error|."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
+    x = t(rng.standard_normal((B, D)) * 0.5)
+    w = t(rng.standard_normal((N, R, D)) * 0.1)
+    n_clusters = N // cs
+    idx = torch.from_numpy(rng.permutation(n_clusters)[
+        :max(1, n_clusters // 2)].astype(np.int32)).cuda()
+    y = ops.cluster_gather_ffn(x, w, idx, activation=act, cluster_size=cs)
+    yd = ops.dense_ffn(x, w, activation=act)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    err = 0.0
+    for name, a, b in (
+            ("cluster_gather_ffn", y, cluster_gather_ffn_ref(
+                x, w, idx, activation=act, cluster_size=cs)),
+            ("dense_ffn", yd, dense_ffn_ref(x, w, activation=act))):
+        if a.dtype != dtype or a.shape != (B, D):
+            raise AssertionError(f"{name}: {a.dtype} {tuple(a.shape)}")
+        a, b = a.float(), b.float()
+        e = float((a - b).abs().max())
+        if not torch.allclose(a, b, atol=tol, rtol=tol):
+            raise AssertionError(f"{name} B={B} D={D} N={N} R={R} {act} "
+                                 f"{dtype}: max |y - plain| = {e}")
+        err = max(err, e)
+    return err
+
+
+def gather_bound(B, n_neurons, ids, dtype):
+    """Bytes: x, the n_neurons bundles read once, the ids, y; operations:
+    the gate, up and down products."""
+    s = GATHER
+    es = torch.empty((), dtype=dtype).element_size()
+    nbytes = es * (2 * B * s["D"] + n_neurons * s["R"] * s["D"]) + 4 * ids
+    return roofline(nbytes, 2 * B * n_neurons * s["R"] * s["D"], dtype)
+
+
+def phase_gather():
+    print("== phase 3 (gather): cluster_gather_ffn and dense_ffn against "
+          "their plain versions")
+    acts = [("silu", 3), ("relu2", 3), ("gelu", 2), ("geglu", 3)]
+    shapes = [(1, 64, 256, 32), (4, 128, 512, 64), (8, 256, 1024, 128),
+              (2, 384, 768, 128)]
+    err, n = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for act, R in acts:
+            for B, D, N, cs in shapes:
+                err = max(err, check_gather(B, D, N, R, cs, act, dtype,
+                                            seed=B * N + cs))
+                n += 1
+        for B in (1, 32, 300):
+            for N in (1536, 1472):
+                err = max(err, check_gather(B, 576, N, 3, 64, "silu", dtype,
+                                            seed=B + N))
+                n += 1
+    print(f"  {n} cases (4 activations x 4 reference shapes, B 1/32/300 x "
+          f"N 1536/1472, fp32 and bf16): max |y - plain| = {err:.3e}")
+
+    s, bf16 = GATHER, torch.bfloat16
+    timings = {}
+    for B in (1, 32):
+        rng = np.random.default_rng(200 + B)
+        x = torch.from_numpy(rng.standard_normal((B, s["D"])).astype(
+            np.float32) * 0.5).to("cuda", bf16)
+        w = torch.from_numpy(rng.standard_normal(
+            (s["N"], s["R"], s["D"])).astype(np.float32) * 0.1).to("cuda",
+                                                                   bf16)
+        idx = torch.from_numpy(rng.permutation(s["N"] // s["cs"])[
+            :s["n_ids"]].astype(np.int32)).cuda()
+        rows = (idx.long()[:, None] * s["cs"]
+                + torch.arange(s["cs"], device="cuda")).reshape(-1)
+        cases = {
+            "cluster_gather_ffn": (
+                lambda: ops.cluster_gather_ffn(x, w, idx, activation="silu",
+                                               cluster_size=s["cs"]),
+                lambda: cluster_gather_ffn_ref(x, w, idx, activation="silu",
+                                               cluster_size=s["cs"]),
+                lambda: _apply_bundle(w[rows], x, "silu"),
+                gather_bound(B, s["n_ids"] * s["cs"], s["n_ids"], bf16)),
+            "dense_ffn": (
+                lambda: ops.dense_ffn(x, w, activation="silu"),
+                lambda: dense_ffn_ref(x, w, activation="silu"),
+                lambda: _apply_bundle(w, x, "silu"),
+                gather_bound(B, s["N"], 0, bf16)),
+        }
+        for name, (kern, plain, comp, (b_ms, b_by)) in cases.items():
+            t = dict(ms=cuda_time_ms(kern), graph_ms=graph_time_ms(kern),
+                     plain_ms=cuda_time_ms(plain),
+                     composition_ms=cuda_time_ms(comp), bound_ms=b_ms,
+                     bound_by=b_by)
+            timings[(name, B)] = t
+            print(f"  {name} B={B:2d} bf16 (D 576, N 1536, R 3"
+                  f"{', 12 of 24 clusters' if 'gather' in name else ''}): "
+                  f"kernel {t['ms'] * 1e3:.2f} us/call "
+                  f"({t['graph_ms'] * 1e3:.2f} us in a CUDA graph), plain "
+                  f"{t['plain_ms'] * 1e3:.2f} us, torch.matmul composition "
+                  f"(_apply_bundle, not one library call) "
+                  f"{t['composition_ms'] * 1e3:.2f} us, bound "
+                  f"{b_ms * 1e3:.3f} us ({b_by})")
+    return err, timings
 
 
 # ----------------------------------------------------------- phase 4 ----
@@ -281,16 +462,30 @@ def profile_steps(engine, vocab, batch=4, n_new=5):
               f"{e.count / steps:6.0f}/step  {e.key[:70]}")
 
 
-def phase_serve():
-    print("== phase 4: serve smollm-135m at full width through the kernel")
+def phase_serve(sd="fp16"):
+    print(f"== phase 4: serve smollm-135m at full width through the kernel, "
+          f"storage dtype {sd}")
     torch.cuda.reset_peak_memory_stats()
-    ops.fused_cold_ffn.launches = 0
     engine, cfg = build_engine("smollm-135m", reduced=False,
-                               backend="pallas", ctx_budget=CTX)
+                               backend="pallas", ctx_budget=CTX,
+                               storage_dtype=sd)
+    if (engine.model.layers[0].ffn.quant is None) != (sd == "fp16"):
+        raise AssertionError(f"{sd}: quantized containers missing or stray")
+    # host seconds the storage plane (numpy, on the CPU) takes per step
+    plane, price = [], engine.storage.step
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = price(*a, **k)
+        plane.append(time.perf_counter() - t0)
+        return out
+    engine.storage.step = timed
+    ops.fused_cold_ffn.launches = 0
     toks, stats, walls = serve_stream(engine, cfg.vocab_size)
     launches = ops.fused_cold_ffn.launches
     peak = torch.cuda.max_memory_allocated()
     hist = list(engine.sched.batch_history)
+    plane_ms = float(np.mean(plane) * 1e3)
     profile_steps(engine, cfg.vocab_size)
     engine.close()
     steps = len(stats)
@@ -311,20 +506,22 @@ def phase_serve():
     print(f"  wall per decode step (synchronized): first {w[0]:.2f} ms, "
           f"mean {w.mean():.2f} ms, median {np.median(w):.2f} ms, "
           f"mean after the first {w[1:].mean():.2f} ms")
+    print(f"  storage plane (host) {plane_ms:.2f} ms per step")
     print(f"  peak device memory {peak / 2**20:.1f} MiB")
     print(f"  modeled decode rate (storage plane, PHONE profile): "
           f"{modeled:.2f} tok/s")
     return dict(launches=launches, steps=steps, wall_ms_mean=float(w.mean()),
+                plane_ms=plane_ms,
                 wall_ms_median=float(np.median(w)), peak_bytes=peak,
                 batch_history=hist)
 
 
 # ----------------------------------------------------------- phase 5 ----
 
-def parity_run(cfg, backend):
+def parity_run(cfg, backend, sd="fp16"):
     fam = serving_family(cfg)
     model = fam.make_model(cfg, device="cuda", seed=0)
-    plan = build_plan(cfg, hw=PHONE, backend=backend)
+    plan = build_plan(cfg, hw=PHONE, backend=backend, storage_dtype=sd)
     model = fam.prepare_params(model, plan)
     engine = ServeEngine(cfg, model, plan, temperature=0.0, seed=0,
                          backend=backend, ctx_budget=CTX)
@@ -340,13 +537,13 @@ def parity_run(cfg, backend):
     return toks, traces, stats
 
 
-def phase_parity():
-    print("== phase 5: pallas and jnp backends at full width, fp32, "
-          "4 layers")
+def phase_parity(sd="fp16"):
+    print(f"== phase 5: pallas and jnp backends at full width, fp32, "
+          f"4 layers, storage dtype {sd}")
     cfg = get_config("smollm-135m").replace(
         num_layers=4, param_dtype="float32", compute_dtype="float32")
-    pt, ptr, pst = parity_run(cfg, "pallas")
-    jt, jtr, jst = parity_run(cfg, "jnp")
+    pt, ptr, pst = parity_run(cfg, "pallas", sd)
+    jt, jtr, jst = parity_run(cfg, "jnp", sd)
     if pt != jt:
         raise AssertionError("backends disagree on tokens")
     if len(ptr) != len(jtr) or any(not np.array_equal(a, b)
@@ -356,6 +553,63 @@ def phase_parity():
         raise AssertionError("backends disagree on TokenStats")
     print(f"  {len(pst)} steps: tokens, TokenStats and {len(ptr)} traces "
           f"of shape {ptr[0].shape} identical")
+
+
+# ----------------------------------------------------------- phase 6 ----
+
+def phase_api(batch=4):
+    """The kernel API over every layer of the full-width bf16 model: the
+    counts of cluster_gather_ffn and dense_ffn are set to 0 just before
+    and read just after. fused_cold_ffn (relu mode) picks each layer's
+    clusters; cluster_gather_ffn_grouped over those picks must give its
+    output, and dense_ffn must match its plain version."""
+    print("== phase 6: the kernel API at full width (30 layers, bf16)")
+    cfg = get_config("smollm-135m")
+    fam = serving_family(cfg)
+    model = fam.make_model(cfg, device="cuda", seed=0)
+    plan = build_plan(cfg, hw=PHONE, backend="pallas")
+    model = fam.prepare_params(model, plan)
+    p = plan.plan_for_batch(batch)
+    G, cs, n_hot = p.groups, p.cluster_size, p.n_hot
+    kc = 4                                # several clusters per layer
+    rng = np.random.default_rng(5)
+    # x is scaled so that the outputs are of unit size, the size the
+    # reference's tolerances are set for: the bundles are drawn at
+    # 1/sqrt(R), and at x ~ N(0, 0.5) outputs reach 1e3, where one bf16
+    # step of h between two fp32 summation orders moves y by ~0.1
+    x = torch.from_numpy(rng.standard_normal((batch, cfg.d_model)).astype(
+        np.float32) * 0.02).to("cuda", torch.bfloat16)
+    tol = TOL[torch.bfloat16]
+    err = 0.0
+    ops.cluster_gather_ffn.launches = ops.dense_ffn.launches = 0
+    for layer in model.layers:
+        w = layer.ffn.w
+        N, R, D = w.shape
+        nc_g = (N - n_hot) // G // cs
+        wc = w[n_hot:].reshape(G, nc_g, cs, R, D)
+        yf, idx = ops.fused_cold_ffn(x, wc, layer.ffn.pred_A,
+                                     layer.ffn.pred_B[:, n_hot:],
+                                     activation=cfg.activation, mode="relu",
+                                     kc=kc)
+        yg = ops.cluster_gather_ffn_grouped(x, wc, idx,
+                                            activation=cfg.activation)
+        yd = ops.dense_ffn(x, w, activation=cfg.activation)
+        for name, a, b in (("gather vs fused", yg.float(), yf),
+                           ("dense vs plain", yd.float(), dense_ffn_ref(
+                               x, w, activation=cfg.activation).float())):
+            if not torch.allclose(a, b, atol=tol, rtol=tol):
+                raise AssertionError(f"{name}: max |diff| = "
+                                     f"{float((a - b).abs().max())}")
+            err = max(err, float((a - b).abs().max()))
+    torch.cuda.synchronize()
+    launches = dict(cluster_gather_ffn=ops.cluster_gather_ffn.launches,
+                    dense_ffn=ops.dense_ffn.launches)
+    if set(launches.values()) != {cfg.num_layers}:
+        raise AssertionError(f"kernel API launches {launches}, expected "
+                             f"{cfg.num_layers} each")
+    print(f"  {cfg.num_layers} layers: launches {launches}; gather over "
+          f"the fused picks and dense_ffn agree, max |diff| = {err:.3e}")
+    return launches
 
 
 def main():
@@ -380,22 +634,61 @@ def main():
     print(f"  build phase {time.perf_counter() - t0:.1f} s")
 
     max_err, timings = phase_kernel()
+    q_err, q_timings = phase_quant()
+    g_err, g_timings = phase_gather()
     serve = phase_serve()
+    q_serve = {sd: phase_serve(sd) for sd in QUANT}
     phase_parity()
+    phase_parity("int4-mixed")
+    api = phase_api()
 
-    print("== phase 6: summary")
-    t1 = timings[1]
-    print(json.dumps({"kernels": [{
+    print("== phase 7: summary")
+    src = "src/repro_torch/kernels/csrc/"
+    shape = "B=1 D=576 r=64 cs=64 nc_g=23 R=3 kc=1 bf16"
+    t1, q1 = timings[1], q_timings[("int8", 1)]
+    rows = [{
         "name": "fused_cold_ffn", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fused_cold_ffn.cu",
+        "source": src + "fused_cold_ffn.cu",
         "replaces": "src/repro/kernels/cluster_gather_ffn.py:273",
         "checked": True, "launches": serve["launches"],
         "max_abs_err": max_err, "ms": t1["ms"], "plain_ms": t1["plain_ms"],
         "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
-        "library_ms": None, "graph_ms": t1["graph_ms"],
-        "shape": "B=1 D=576 r=64 cs=64 nc_g=23 R=3 kc=1 bf16",
+        "library_ms": None, "graph_ms": t1["graph_ms"], "shape": shape,
         "by_batch": {str(b): v for b, v in timings.items()},
-        "decode_steps": serve["steps"]}]}))
+        "decode_steps": serve["steps"]}, {
+        "name": "fused_cold_ffn (quant mode)", "route": "cuda",
+        "source": src + "fused_cold_ffn.cu",
+        "replaces": "src/repro/kernels/cluster_gather_ffn.py:148",
+        "checked": True,
+        "launches": sum(v["launches"] for v in q_serve.values()),
+        "max_abs_err": q_err, "ms": q1["ms"], "plain_ms": q1["plain_ms"],
+        "bound_ms": q1["bound_ms"], "bound_by": q1["bound_by"],
+        "library_ms": None, "graph_ms": q1["graph_ms"],
+        "shape": shape + " int8",
+        "by_dtype_batch": {f"{sd} B={b}": v
+                           for (sd, b), v in q_timings.items()},
+        "launches_by_dtype": {sd: v["launches"] for sd, v in q_serve.items()},
+        "decode_steps": {sd: v["steps"] for sd, v in q_serve.items()}}]
+    for name, line, shape_g in (
+            ("cluster_gather_ffn", "src/repro/kernels/cluster_gather_ffn.py:80",
+             "B=1 D=576 N=1536 R=3 cs=64 12 of 24 clusters bf16"),
+            ("dense_ffn", "src/repro/kernels/dense_ffn.py:22",
+             "B=1 D=576 N=1536 R=3 bf16")):
+        g1 = g_timings[(name, 1)]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": src + "cluster_gather_ffn.cu", "replaces": line,
+            "checked": True, "launches": api[name],
+            "launches_on": "the kernel API at full width (phase 6); the "
+                           "serving path launches it 0 times",
+            "max_abs_err": g_err, "ms": g1["ms"],
+            "plain_ms": g1["plain_ms"], "bound_ms": g1["bound_ms"],
+            "bound_by": g1["bound_by"], "library_ms": None,
+            "graph_ms": g1["graph_ms"],
+            "composition_ms": g1["composition_ms"], "shape": shape_g,
+            "by_batch": {str(b): v for (n, b), v in g_timings.items()
+                         if n == name}})
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,11 @@
 `params_from_numpy(tree, cfg)` builds the port's `DenseModel` from the
 JAX package's parameter pytree with every leaf given as a numpy array:
 {"embed", "out_norm", ["lm_head"], "layers": {"ln1", "ln2", "attn":
-{"wq", "wk", "wv", "wo"}, "ffn": {"w", ["pred": {"A", "B"}]}}}, layer
-leaves stacked (L, ...). It reads numpy alone; bfloat16 leaves (numpy's
-ml_dtypes extension type) cross over bit for bit through a uint16 view.
+{"wq", "wk", "wv", "wo"}, "ffn": {"w", ["pred": {"A", "B"}], ["wq",
+"wsc", ["wout"]]}}}, layer leaves stacked (L, ...); the FFN's wq/wsc/wout
+are the stored cold bundles of int8 / int4-mixed storage. It reads numpy
+alone; bfloat16 leaves (numpy's ml_dtypes extension type) cross over bit
+for bit through a uint16 view.
 """
 from __future__ import annotations
 
@@ -49,6 +51,10 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None) -> DenseModel:
             _load(getattr(layer.attn, k), lt["attn"][k][l],
                   f"layers.attn.{k}[{l}]")
         _load(layer.ffn.w, lt["ffn"]["w"][l], f"layers.ffn.w[{l}]")
+        for k in ("wq", "wsc", "wout"):
+            if k in lt["ffn"]:
+                setattr(layer.ffn, k,
+                        _tensor(lt["ffn"][k][l]).to(model.device))
         if layer.ffn.pred_A is not None:
             _load(layer.ffn.pred_A, lt["ffn"]["pred"]["A"][l],
                   f"layers.ffn.pred.A[{l}]")

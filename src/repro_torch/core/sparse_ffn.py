@@ -13,7 +13,9 @@ Paths:
                  through the hand-written fused kernel
                  (`kernels.ops.fused_cold_ffn`); "jnp" runs the plain
                  chain below. The backend names stay the reference's, so
-                 its saved plans load unchanged.
+                 its saved plans load unchanged. Under int8 / int4-mixed
+                 storage both gather the stored codes and dequantize at
+                 the gather boundary.
 """
 from __future__ import annotations
 
@@ -53,14 +55,46 @@ def _top_k_ids(cscore: torch.Tensor, kc: int) -> torch.Tensor:
     return order[:, :kc].to(torch.int32)
 
 
+def _gather_quant(wq, wsc, wout, cidx):
+    """Gather selected cold clusters from the stored quantized form and
+    dequantize at the gather boundary (§7.6): int8 codes * per-row scale
+    (+ fp16 outlier sidecar for int4-mixed), in fp32 — the formula the
+    fused kernel applies, so the backends stay token-identical.
+
+    wq (G, nc_g, cs, R, D) int8; wsc (G, nc_g, cs, R) f32; wout like wq
+    or None; cidx (G, kc) -> (G, kc, cs, R, D) fp32.
+    """
+    groups = torch.arange(wq.shape[0], device=wq.device)[:, None]
+    c = cidx.long()
+    deq = wq[groups, c].float() * wsc[groups, c][..., None]
+    if wout is not None:
+        deq = deq + wout[groups, c].float()
+    return deq
+
+
+def _quant_operands(quant, n_hot: int, shape) -> dict:
+    """Cold slices of the stored quantized containers, shaped for the
+    fused kernel ((G, nc_g, cs, R, D) codes and sidecar, (G, nc_g, cs, R)
+    scales); empty for fp16 storage."""
+    if quant is None:
+        return {}
+    wq, wsc, wout = quant
+    ops = {"wq": wq[n_hot:].reshape(shape),
+           "wsc": wsc[n_hot:].reshape(shape[:-1])}
+    if wout is not None:
+        ops["wout"] = wout[n_hot:].reshape(shape)
+    return ops
+
+
 def ffn_hybrid(w, pred, x, activation: str, mode: str, plan: HybridPlan,
-               return_indices: bool = False, active_mask=None):
+               return_indices: bool = False, active_mask=None, quant=None):
     """Decode-phase hybrid FFN (paper §4.1.2). x: (B, D).
 
     w (N, R, D) bundled weights; pred (A (D, r), B (r, N)) the activation
-    predictor, or None. hot prefix -> dense matmul; cold suffix ->
-    predictor scores -> batch union -> per-group top-k clusters ->
-    gathered FFN.
+    predictor, or None; quant (wq, wsc, wout) the stored cold bundles of
+    int8 / int4-mixed storage, or None for fp16. hot prefix -> dense
+    matmul; cold suffix -> predictor scores -> batch union -> per-group
+    top-k clusters -> gathered FFN.
 
     active_mask (B,) bool, optional: rows excluded from the batch-union
     selection (the serving engine's free KV-arena slots). Masked rows
@@ -88,7 +122,8 @@ def ffn_hybrid(w, pred, x, activation: str, mode: str, plan: HybridPlan,
             from repro_torch.kernels import ops as kops
             y_cold, cidx = kops.fused_cold_ffn(
                 x, wc, A, Bm[:, n_hot:], activation=activation, mode=mode,
-                kc=kc, active_mask=active_mask)
+                kc=kc, active_mask=active_mask,
+                **_quant_operands(quant, n_hot, (G, nc_g, cs, R, D)))
         else:
             scores = predict_scores(A, Bm, x)[:, n_hot:]       # (B, Nc) fp32
             # Batch union (paper fn.1: a neuron is active if any token in
@@ -102,7 +137,15 @@ def ffn_hybrid(w, pred, x, activation: str, mode: str, plan: HybridPlan,
             cscore = union.reshape(G, nc_g, cs).amax(dim=-1)   # (G, nc_g)
             cidx = _top_k_ids(cscore, kc)                      # (G, kc)
             groups = torch.arange(G, device=x.device)[:, None]
-            gath = wc[groups, cidx.long()].reshape(G, kc * cs, R, D)
+            if quant is not None:
+                # gather the stored codes and dequantize at the gather
+                # boundary, cast back to w's dtype as the roundtrip in w
+                q = _quant_operands(quant, n_hot, (G, nc_g, cs, R, D))
+                gath = _gather_quant(q["wq"], q["wsc"], q.get("wout"),
+                                     cidx).to(w.dtype)
+            else:
+                gath = wc[groups, cidx.long()]
+            gath = gath.reshape(G, kc * cs, R, D)
             act = activation_fn(activation)
             g = torch.einsum("bd,gkd->bgk", x, gath[:, :, 0])
             if R == 3:
@@ -126,7 +169,7 @@ def ffn_hybrid(w, pred, x, activation: str, mode: str, plan: HybridPlan,
 
 def ffn_apply(w, pred, x, activation: str, sparse_cfg,
               plan: HybridPlan | None, return_indices: bool = False,
-              active_mask=None):
+              active_mask=None, quant=None):
     """Uniform entry: dense when plan is None (prefill) else hybrid."""
     if plan is None or not sparse_cfg.enabled:
         y = ffn_dense(w, x, activation)
@@ -134,7 +177,8 @@ def ffn_apply(w, pred, x, activation: str, sparse_cfg,
     squeeze = x.dim() == 3
     xx = x.reshape(-1, x.shape[-1]) if squeeze else x
     out = ffn_hybrid(w, pred, xx, activation, sparse_cfg.mode, plan,
-                     return_indices=return_indices, active_mask=active_mask)
+                     return_indices=return_indices, active_mask=active_mask,
+                     quant=quant)
     if return_indices:
         y, cidx = out
         return (y.reshape(x.shape) if squeeze else y), cidx

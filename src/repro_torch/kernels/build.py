@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("fused_cold_ffn",)
+SOURCES = ("fused_cold_ffn", "cluster_gather_ffn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -84,11 +84,19 @@ def build(names=SOURCES) -> dict:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of one source, built first if needed."""
     lib = ctypes.CDLL(str(build((name,))[name].path))
-    if name == "fused_cold_ffn":
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_cold_ffn_launch.argtypes = (
-            [p, p, p, p, i, p, p, p, p, p, p, p] + [i] * 11 + [p])
-        lib.fused_cold_ffn_launch.restype = i
-        lib.fused_cold_ffn_error_string.argtypes = [i]
-        lib.fused_cold_ffn_error_string.restype = ctypes.c_char_p
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = _ARGTYPES[name]
+    launch.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return lib
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the C signatures of each source's <name>_launch (pointers, then ints,
+# then the stream)
+_ARGTYPES = {
+    "fused_cold_ffn": [_P] * 7 + [_I] + [_P] * 7 + [_I] * 12 + [_P],
+    "cluster_gather_ffn": [_P] * 5 + [_I] * 7 + [_P],
+}

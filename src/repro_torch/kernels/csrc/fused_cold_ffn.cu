@@ -1,17 +1,29 @@
 // Fused cold path of the hybrid FFN for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/cluster_gather_ffn.py::
-// fused_cold_ffn (body _fused_kernel), fp path. Per neuron group g it
-// computes predictor scores (x.A).B_g in fp32, the masked batch-union max
-// over rows, the max over each cluster's cs neurons, kc argmax-and-knockout
-// picks with lowest-index ties (written as (G, kc) int32 ids), and for each
-// pick act(x.Wg^T) * (x.Wu^T), CATS-gated on the token's own score > 0,
-// cast to the weight dtype, then .Wd summed into a (B, D) fp32 output.
+// fused_cold_ffn (body _fused_kernel), fp path and quant mode. Per neuron
+// group g it computes predictor scores (x.A).B_g in fp32, the masked
+// batch-union max over rows, the max over each cluster's cs neurons, kc
+// argmax-and-knockout picks with lowest-index ties (written as (G, kc)
+// int32 ids), and for each pick act(x.Wg^T) * (x.Wu^T), CATS-gated on the
+// token's own score > 0, cast to x's dtype, then .Wd summed into a (B, D)
+// fp32 output.
+//
+// Quant mode (quantized cold storage, paper §7.6): the bundles are int8
+// codes q with one fp32 scale per (neuron, row) and, for int4-mixed, an
+// fp16 outlier sidecar o of the codes' shape. Each weight is dequantized
+// where it is read, as the reference does before its dots:
+//   w = cast_T(q * sc)          int8
+//   w = cast_T(q * sc + o)      int4-mixed
+// with the product and the sum each rounded to fp32 (__fmul_rn,
+// __fadd_rn: nvcc would contract them into one FMA and round once). The
+// selection kernels read only the predictor and do not change.
 //
 // What bounds it on this card: bytes. At the main path's shapes (B <= 64,
 // D = 576, r = 64, cs = 64, R = 3, kc = 1, bf16) one call reads ~0.5 MB
-// (predictor 262 KB + one 221 KB bundle) and does ~20 MFLOP at B = 64,
-// far under the 295 FLOP/byte ridge; at B = 1 launch latency dominates.
+// (predictor 262 KB + one 221 KB bundle; int8 codes 111 KB, int4-mixed
+// codes + sidecar 332 KB) and does ~20 MFLOP at B = 64, far under the
+// 295 FLOP/byte ridge; at B = 1 launch latency dominates.
 //
 // Design. The TPU grid (groups,) runs in order on one core, and
 // single-device plans have G = 1, so one block per group would put the
@@ -33,6 +45,8 @@
 // allocated by the caller.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cstdint>
 #include <cfloat>
 #include <climits>
 #include <cmath>
@@ -47,6 +61,7 @@ constexpr int kMaxBatch = 64;   // kDownRowGroups * register accumulators
 constexpr int kSelectThreads = 256;
 
 enum { ACT_SILU = 0, ACT_RELU2 = 1, ACT_GELU_TANH = 2 };
+enum { W_FP = 0, W_INT8 = 1, W_MIXED = 2 };  // weight modes
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
@@ -58,6 +73,32 @@ template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's cast
+}
+
+// The bundles a call reads: fp weights w (W_FP), or int8 codes q with
+// per-(neuron, row) scales sc and, for W_MIXED, the fp16 outliers o.
+template <typename T>
+struct Bundles {
+  const T* w;
+  const int8_t* q;
+  const float* sc;
+  const __half* o;
+};
+
+// Weight (row, r, d) of the (N, R, D) bundles as the dots read it: the fp
+// value, or the dequantized one cast to T, exactly as the reference's
+// f32 multiply, f32 add and cast to x.dtype.
+template <typename T, int MODE>
+__device__ __forceinline__ float load_w(const Bundles<T>& b, size_t row_r, int D,
+                                        int d) {
+  const size_t i = row_r * D + d;
+  if constexpr (MODE == W_FP) {
+    return to_f(b.w[i]);
+  } else {
+    float v = __fmul_rn(static_cast<float>(b.q[i]), b.sc[row_r]);
+    if constexpr (MODE == W_MIXED) v = __fadd_rn(v, __half2float(b.o[i]));
+    return to_f(from_f<T>(v));
+  }
 }
 
 __device__ __forceinline__ float activate(float g, int act) {
@@ -191,8 +232,8 @@ __global__ void select_kernel(const float* __restrict__ tile_max, int* __restric
 // 4. One warp per neuron of a picked cluster: gate (and up) dots over D for
 // every row, lanes strided over D and summed by a fixed shuffle tree.
 // H[b, pick * cs + i] = cast_T(act(g) * u * (score > 0 under CATS)).
-template <typename T>
-__global__ void gate_up_kernel(const T* __restrict__ x, const T* __restrict__ w,
+template <typename T, int MODE>
+__global__ void gate_up_kernel(const T* __restrict__ x, const Bundles<T> w,
                                const int* __restrict__ idx,
                                const float* __restrict__ scores, T* __restrict__ H,
                                int B, int D, int R, int nc_g, int cs, int kc, int Nc,
@@ -203,16 +244,15 @@ __global__ void gate_up_kernel(const T* __restrict__ x, const T* __restrict__ w,
   if (i >= cs) return;
   const int g = pick / kc;
   const int col = (g * nc_g + idx[pick]) * cs + i;  // cold neuron = score column
-  const T* wg = w + (size_t)col * R * D;
-  const T* wu = wg + D;
+  const size_t rg = (size_t)col * R;   // (neuron, row) of the gate row
   const bool gated = R == 3;
   for (int b = 0; b < B; ++b) {
     const T* xb = x + (size_t)b * D;
     float ag = 0.0f, au = 0.0f;
     for (int d = lane; d < D; d += 32) {
       const float xv = to_f(xb[d]);
-      ag = fmaf(xv, to_f(wg[d]), ag);
-      if (gated) au = fmaf(xv, to_f(wu[d]), au);
+      ag = fmaf(xv, load_w<T, MODE>(w, rg, D, d), ag);
+      if (gated) au = fmaf(xv, load_w<T, MODE>(w, rg + 1, D, d), au);
     }
     for (int off = 16; off > 0; off >>= 1) {
       ag += __shfl_down_sync(0xffffffffu, ag, off);
@@ -230,8 +270,8 @@ __global__ void gate_up_kernel(const T* __restrict__ x, const T* __restrict__ w,
 // 5. y[b, d] = sum_n H[b, n] * Wd[row(n), d] over the K = G*kc*cs picked
 // neurons in order; a block owns kDownCols columns and every row, so each
 // output is written once and no partial sums cross blocks.
-template <typename T>
-__global__ void down_kernel(const T* __restrict__ H, const T* __restrict__ w,
+template <typename T, int MODE>
+__global__ void down_kernel(const T* __restrict__ H, const Bundles<T> w,
                             const int* __restrict__ idx, float* __restrict__ y,
                             int B, int D, int R, int nc_g, int cs, int kc, int K) {
   const int d = blockIdx.x * kDownCols + threadIdx.x;
@@ -244,7 +284,7 @@ __global__ void down_kernel(const T* __restrict__ H, const T* __restrict__ w,
     const int pick = n / cs;
     const int i = n - pick * cs;
     const int row = ((pick / kc) * nc_g + idx[pick]) * cs + i;
-    const float wv = to_f(w[((size_t)row * R + (R - 1)) * D + d]);
+    const float wv = load_w<T, MODE>(w, (size_t)row * R + (R - 1), D, d);
 #pragma unroll
     for (int q = 0; q < kMaxBatch / kDownRowGroups; ++q) {
       const int b = ty + q * kDownRowGroups;
@@ -258,13 +298,12 @@ __global__ void down_kernel(const T* __restrict__ H, const T* __restrict__ w,
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* w, const void* A, const void* Bp, int ldb,
+template <typename T, int MODE>
+int launch(const void* x, const Bundles<T>& wt, const void* A, const void* Bp, int ldb,
            const float* mask, float* y, int* idx, float* h, float* scores,
            float* tile_max, void* H, int B, int D, int r, int G, int nc_g, int cs,
            int R, int kc, int act, int cats, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
-  const T* wt = static_cast<const T*>(w);
   const int n_clusters = G * nc_g;
   const int Nc = n_clusters * cs;
   const int K = G * kc * cs;
@@ -284,14 +323,32 @@ int launch(const void* x, const void* w, const void* A, const void* Bp, int ldb,
       tile_max, idx, n_chunks, n_clusters, nc_g, kc);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  gate_up_kernel<T><<<dim3(G * kc, (cs + kGateWarps - 1) / kGateWarps), 32 * kGateWarps, 0,
+  gate_up_kernel<T, MODE><<<dim3(G * kc, (cs + kGateWarps - 1) / kGateWarps), 32 * kGateWarps, 0,
                       stream>>>(xt, wt, idx, scores, static_cast<T*>(H), B, D, R, nc_g, cs,
                                 kc, Nc, K, act, cats);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  down_kernel<T><<<(D + kDownCols - 1) / kDownCols, dim3(kDownCols, kDownRowGroups), 0,
+  down_kernel<T, MODE><<<(D + kDownCols - 1) / kDownCols, dim3(kDownCols, kDownRowGroups), 0,
                    stream>>>(static_cast<const T*>(H), wt, idx, y, B, D, R, nc_g, cs, kc, K);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* x, const void* w, const void* wq, const void* wsc,
+             const void* wout, const void* A, const void* Bp, int ldb,
+             const float* mask, float* y, int* idx, float* h, float* scores,
+             float* tile_max, void* H, int B, int D, int r, int G, int nc_g, int cs,
+             int R, int kc, int act, int cats, int wmode, cudaStream_t s) {
+  const Bundles<T> b{static_cast<const T*>(w), static_cast<const int8_t*>(wq),
+                     static_cast<const float*>(wsc), static_cast<const __half*>(wout)};
+  if (wmode == W_INT8)
+    return launch<T, W_INT8>(x, b, A, Bp, ldb, mask, y, idx, h, scores, tile_max, H, B,
+                             D, r, G, nc_g, cs, R, kc, act, cats, s);
+  if (wmode == W_MIXED)
+    return launch<T, W_MIXED>(x, b, A, Bp, ldb, mask, y, idx, h, scores, tile_max, H, B,
+                              D, r, G, nc_g, cs, R, kc, act, cats, s);
+  return launch<T, W_FP>(x, b, A, Bp, ldb, mask, y, idx, h, scores, tile_max, H, B, D,
+                         r, G, nc_g, cs, R, kc, act, cats, s);
 }
 
 }  // namespace
@@ -303,20 +360,25 @@ extern "C" {
 // (B <= 64, cs <= 1024, r <= 1024, nc_g <= 12288), the dtypes and the
 // contiguity, and allocates every output and scratch buffer:
 //   y (B, D) f32, idx (G, kc) i32, h (B, r) f32, scores (B, G*nc_g*cs) f32,
-//   tile_max (ceil(B/8), G*nc_g) f32, H (B, G*kc*cs) in the weight dtype.
+//   tile_max (ceil(B/8), G*nc_g) f32, H (B, G*kc*cs) in x's dtype.
 // x (B, D), w (G*nc_g*cs, R, D), A (D, r) and Bp (r, >= G*nc_g*cs, row
 // stride ldb) share one dtype: is_bf16 = 1 for bfloat16, 0 for float32.
-int fused_cold_ffn_launch(const void* x, const void* w, const void* A, const void* Bp,
-                          int ldb, const float* mask, float* y, int* idx, float* h,
-                          float* scores, float* tile_max, void* H, int B, int D, int r,
-                          int G, int nc_g, int cs, int R, int kc, int act, int cats,
-                          int is_bf16, void* stream) {
+// wmode 0 reads w; 1 reads int8 codes wq (w's shape) and fp32 scales wsc
+// (G*nc_g*cs, R) instead; 2 also adds the fp16 outliers wout (w's shape).
+// Pointers a mode does not read may be null.
+int fused_cold_ffn_launch(const void* x, const void* w, const void* wq,
+                          const void* wsc, const void* wout, const void* A,
+                          const void* Bp, int ldb, const float* mask, float* y, int* idx,
+                          float* h, float* scores, float* tile_max, void* H, int B,
+                          int D, int r, int G, int nc_g, int cs, int R, int kc, int act,
+                          int cats, int is_bf16, int wmode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(x, w, A, Bp, ldb, mask, y, idx, h, scores, tile_max, H, B,
-                                 D, r, G, nc_g, cs, R, kc, act, cats, s);
-  return launch<float>(x, w, A, Bp, ldb, mask, y, idx, h, scores, tile_max, H, B, D, r, G,
-                       nc_g, cs, R, kc, act, cats, s);
+    return dispatch<__nv_bfloat16>(x, w, wq, wsc, wout, A, Bp, ldb, mask, y, idx, h,
+                                   scores, tile_max, H, B, D, r, G, nc_g, cs, R, kc, act,
+                                   cats, wmode, s);
+  return dispatch<float>(x, w, wq, wsc, wout, A, Bp, ldb, mask, y, idx, h, scores,
+                         tile_max, H, B, D, r, G, nc_g, cs, R, kc, act, cats, wmode, s);
 }
 
 const char* fused_cold_ffn_error_string(int code) {

@@ -13,15 +13,69 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.ref import fused_cold_ffn_ref
+from repro_torch.kernels.ref import (
+    cluster_gather_ffn_ref, dense_ffn_ref, fused_cold_ffn_ref)
 
 _ACT_CODES = {"silu": 0, "relu2": 1, "gelu": 2, "geglu": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# fused_cold_ffn's weight modes: fp bundles, int8 codes, int8 codes plus
+# an fp16 outlier sidecar (int4-mixed)
+_MODE_FP, _MODE_INT8, _MODE_MIXED = 0, 1, 2
 MAX_BATCH = 64
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def _check_activation(activation: str) -> int:
+    if activation not in _ACT_CODES:
+        raise ValueError(f"unknown activation {activation!r}; expected one "
+                         f"of {sorted(_ACT_CODES)}")
+    return _ACT_CODES[activation]
+
+
+def _check_on(x, name: str, **tensors):
+    """x lies on the CPU (-> False: run the plain version) or on CUDA
+    with every tensor beside it (-> True: launch)."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+    for n, t in tensors.items():
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{n} is on {t.device}, x on {x.device}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name} takes float32 or bfloat16, not {x.dtype}")
+    return True
+
+
+def _raise_on_error(lib, rc: int, name: str, source: str):
+    if rc != 0:
+        text = getattr(lib, f"{source}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({text})")
+
+
+def _quant_mode(wc, wq, wsc, wout) -> int:
+    """Check the quantized containers against wc's shape and return the
+    weight mode the kernel takes."""
+    if wq is None:
+        if wsc is not None or wout is not None:
+            raise ValueError("wsc/wout given without the int8 codes wq")
+        return _MODE_FP
+    if wsc is None:
+        raise ValueError("int8 codes wq need their per-row scales wsc")
+    for name, t, dt, shape in (("wq", wq, torch.int8, wc.shape),
+                               ("wsc", wsc, torch.float32, wc.shape[:-1]),
+                               ("wout", wout, torch.float16, wc.shape)):
+        if t is None:
+            continue
+        if t.dtype != dt:
+            raise TypeError(f"{name} is {t.dtype}, expected {dt}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{tuple(shape)} (wc {tuple(wc.shape)})")
+    return _MODE_INT8 if wout is None else _MODE_MIXED
 
 
 def fused_cold_ffn(x, wc, A, Bp, *, activation: str, mode: str = "relu",
@@ -33,17 +87,19 @@ def fused_cold_ffn(x, wc, A, Bp, *, activation: str, mode: str = "relu",
     and Bp (r, G*nc_g*cs) the predictor's cold slice (Bp may be a column
     slice: its rows need only unit stride); kc clusters kept per group.
     `mode == "cats"` gates each token by its own score; `active_mask` (B,)
-    bool keeps dead KV-arena lanes out of the batch union. Returns
-    (y (B, D) fp32, idx (G, kc) int32).
+    bool keeps dead KV-arena lanes out of the batch union.
+
+    Quantized storage (§7.6): wq (int8 codes, wc's shape), wsc
+    ((G, nc_g, cs, R) fp32 scales) and, for int4-mixed, wout (fp16
+    outliers, wc's shape). The kernel then reads the codes instead of wc
+    and dequantizes each picked weight as q * sc (+ out) in fp32, cast to
+    x's dtype, before the dots. Returns (y (B, D) fp32, idx (G, kc)
+    int32).
     """
-    if wq is not None or wsc is not None or wout is not None:
-        raise NotImplementedError(
-            "quantized cold bundles (wq/wsc/wout) belong to the "
-            "quantized-storage slice, which the port has not reached")
-    if activation not in _ACT_CODES:
-        raise ValueError(f"unknown activation {activation!r}")
+    act = _check_activation(activation)
     if mode not in ("relu", "cats"):
         raise ValueError(f"unknown sparse mode {mode!r}")
+    wmode = _quant_mode(wc, wq, wsc, wout)
     G, nc_g, cs, R, D = wc.shape
     B = x.shape[0]
     if active_mask is None:
@@ -51,23 +107,16 @@ def fused_cold_ffn(x, wc, A, Bp, *, activation: str, mode: str = "relu",
     else:
         mask = active_mask.to(device=x.device, dtype=torch.float32).reshape(B)
     cats = mode == "cats"
-    if x.device.type == "cpu":
+    if not _check_on(x, "fused_cold_ffn", wc=wc, A=A, Bp=Bp, wq=wq, wsc=wsc,
+                     wout=wout):
         return fused_cold_ffn_ref(x, wc, A, Bp, mask, activation=activation,
-                                  cats=cats, kc=kc)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_cold_ffn runs on cpu or cuda, not "
-                         f"{x.device}")
+                                  cats=cats, kc=kc, wq=wq, wsc=wsc, wout=wout)
     r = A.shape[1]
     Nc = G * nc_g * cs
     for name, t in (("wc", wc), ("A", A), ("Bp", Bp)):
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if t.dtype != x.dtype:
             raise TypeError(f"{name} is {t.dtype}, x is {x.dtype}: the "
                             f"kernel takes one dtype for all four")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"fused_cold_ffn takes float32 or bfloat16, not "
-                        f"{x.dtype}")
     if x.dim() != 2 or x.shape[1] != D or A.shape != (D, r) \
             or Bp.dim() != 2 or Bp.shape[0] != r or Bp.shape[1] < Nc:
         raise ValueError(f"shapes disagree: x {tuple(x.shape)}, wc "
@@ -79,9 +128,10 @@ def fused_cold_ffn(x, wc, A, Bp, *, activation: str, mode: str = "relu",
                          f"R={R} (2|3), kc={kc} (1..nc_g={nc_g}), cs={cs} "
                          f"(<=1024), r={r} (<=1024), nc_g <= 12288")
     if not (x.is_contiguous() and wc.is_contiguous() and A.is_contiguous()
-            and Bp.stride(1) == 1):
-        raise ValueError("x, wc and A must be contiguous and Bp's rows "
-                         "unit-stride")
+            and Bp.stride(1) == 1
+            and all(t is None or t.is_contiguous() for t in (wq, wsc, wout))):
+        raise ValueError("x, wc, A, wq, wsc and wout must be contiguous and "
+                         "Bp's rows unit-stride")
     from repro_torch.kernels.build import library   # builds at first use
     lib = library("fused_cold_ffn")
     dev = x.device
@@ -95,17 +145,110 @@ def fused_cold_ffn(x, wc, A, Bp, *, activation: str, mode: str = "relu",
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.fused_cold_ffn_launch(
-            _ptr(x), _ptr(wc), _ptr(A), _ptr(Bp), Bp.stride(0), _ptr(mask),
-            _ptr(y), _ptr(idx), _ptr(h), _ptr(scores), _ptr(tile_max),
-            _ptr(H), B, D, r, G, nc_g, cs, R, kc, _ACT_CODES[activation],
-            int(cats), _DTYPE_CODES[x.dtype], ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"fused_cold_ffn launch failed: CUDA error {rc} "
-                           f"({lib.fused_cold_ffn_error_string(rc).decode()})")
+            _ptr(x), _ptr(wc), _ptr(wq), _ptr(wsc), _ptr(wout), _ptr(A),
+            _ptr(Bp), Bp.stride(0), _ptr(mask), _ptr(y), _ptr(idx), _ptr(h),
+            _ptr(scores), _ptr(tile_max), _ptr(H), B, D, r, G, nc_g, cs, R,
+            kc, act, int(cats), _DTYPE_CODES[x.dtype], wmode,
+            ctypes.c_void_p(stream))
+    _raise_on_error(lib, rc, "fused_cold_ffn", "fused_cold_ffn")
     fused_cold_ffn.launches += 1
     return y, idx
 
 
 fused_cold_ffn.launches = 0
 
-__all__ = ["fused_cold_ffn"]
+
+def _gather_ffn(x, w, cluster_idx, cluster_size: int, activation: str,
+                name: str):
+    """Launch the gathered bundled FFN over the clusters `cluster_idx`
+    (None: every neuron in order). Returns (B, D) in x's dtype."""
+    act = _check_activation(activation)
+    B, D = x.shape
+    N, R, Dw = w.shape
+    if w.dtype != x.dtype or Dw != D:
+        raise ValueError(f"{name}: w {tuple(w.shape)} {w.dtype} does not "
+                         f"match x {tuple(x.shape)} {x.dtype}")
+    K = N if cluster_idx is None else cluster_idx.shape[0] * cluster_size
+    if B < 1 or K < 1 or R < 1:
+        raise ValueError(f"{name}: needs B >= 1 rows and at least one "
+                         f"neuron, got B={B}, {K} neurons, R={R}")
+    if cluster_idx is not None and (cluster_idx.dtype != torch.int32
+                                    or not cluster_idx.is_contiguous()):
+        raise TypeError(f"{name}: cluster ids must be contiguous int32")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError(f"{name}: x and w must be contiguous")
+    from repro_torch.kernels.build import library   # builds at first use
+    lib = library("cluster_gather_ffn")
+    y = torch.empty((B, D), dtype=x.dtype, device=x.device)
+    H = torch.empty((B, K), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = lib.cluster_gather_ffn_launch(
+            _ptr(x), _ptr(w), _ptr(cluster_idx), _ptr(H), _ptr(y), B, D, R,
+            K, cluster_size, act, _DTYPE_CODES[x.dtype],
+            ctypes.c_void_p(stream))
+    _raise_on_error(lib, rc, name, "cluster_gather_ffn")
+    return y
+
+
+def cluster_gather_ffn(x, w, cluster_idx, *, activation: str,
+                       cluster_size: int):
+    """Sum of the bundled FFN over caller-given clusters (replaces
+    `repro.kernels.cluster_gather_ffn.cluster_gather_ffn`).
+
+    x (B, D); w (N, R, D) bundled neuron weights; cluster_idx (K,) int32
+    ids of clusters of `cluster_size` consecutive neurons, each in
+    [0, N / cluster_size). Gate/up dots and the down product accumulate
+    in fp32; returns (B, D) in x's dtype.
+    """
+    _check_activation(activation)
+    N = w.shape[0]
+    if N % cluster_size:
+        raise ValueError(f"N={N} is not a multiple of cluster_size="
+                         f"{cluster_size}")
+    if not _check_on(x, "cluster_gather_ffn", w=w, cluster_idx=cluster_idx):
+        return cluster_gather_ffn_ref(x, w, cluster_idx,
+                                      activation=activation,
+                                      cluster_size=cluster_size)
+    y = _gather_ffn(x, w, cluster_idx, cluster_size, activation,
+                    "cluster_gather_ffn")
+    cluster_gather_ffn.launches += 1
+    return y
+
+
+cluster_gather_ffn.launches = 0
+
+
+def cluster_gather_ffn_grouped(x, wc, cidx, *, activation: str):
+    """Grouped form: x (B, D); wc (G, nc_g, cs, R, D) cold clusters per
+    group; cidx (G, kc) cluster ids per group. Each id gets its global
+    cluster id g * nc_g + id, and one `cluster_gather_ffn` call sums all
+    groups' clusters (replaces `repro.kernels.ops.
+    cluster_gather_ffn_grouped`)."""
+    G, nc_g, cs, R, D = wc.shape
+    w_flat = wc.reshape(G * nc_g * cs, R, D)
+    gidx = (cidx + torch.arange(G, dtype=cidx.dtype,
+                                device=cidx.device)[:, None] * nc_g)
+    return cluster_gather_ffn(x, w_flat, gidx.reshape(-1).contiguous(),
+                              activation=activation, cluster_size=cs)
+
+
+def dense_ffn(x, w, *, activation: str, block_n: int = 512):
+    """Full dense bundled FFN over w (N, R, D) (replaces
+    `repro.kernels.dense_ffn.dense_ffn`). x (B, D) -> (B, D) in x's
+    dtype, fp32 accumulation. `block_n` is the reference's tile size; it
+    is accepted and does not constrain N, which may be any size."""
+    _check_activation(activation)
+    if block_n < 1:
+        raise ValueError(f"block_n must be positive, got {block_n}")
+    if not _check_on(x, "dense_ffn", w=w):
+        return dense_ffn_ref(x, w, activation=activation)
+    y = _gather_ffn(x, w, None, 1, activation, "dense_ffn")
+    dense_ffn.launches += 1
+    return y
+
+
+dense_ffn.launches = 0
+
+__all__ = ["cluster_gather_ffn", "cluster_gather_ffn_grouped",
+           "fused_cold_ffn", "dense_ffn"]

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.sparse_ffn import _gather_quant
 from repro_torch.models.modules import activation_fn
 
 # A masked row loses every batch-union max without poisoning the
@@ -31,9 +32,13 @@ def select_clusters(cscore: torch.Tensor, kc: int) -> torch.Tensor:
 
 
 def fused_cold_ffn_ref(x, wc, A, Bp, mask, *, activation: str, cats: bool,
-                       kc: int):
+                       kc: int, wq=None, wsc=None, wout=None):
     """x (B, D); wc (G, nc_g, cs, R, D); A (D, r); Bp (r, G*nc_g*cs);
     mask (B,) float, > 0 = the row votes in the batch union.
+    Quant mode: wq (G, nc_g, cs, R, D) int8 codes, wsc (G, nc_g, cs, R)
+    fp32 scales and, for int4-mixed, wout (G, nc_g, cs, R, D) fp16
+    outliers; the picked bundles are dequantized as q * sc (+ out) in fp32
+    and cast to x's dtype before the dots, and wc is not read.
     Returns (y (B, D) fp32, idx (G, kc) int32)."""
     G, nc_g, cs, R, D = wc.shape
     B = x.shape[0]
@@ -43,7 +48,11 @@ def fused_cold_ffn_ref(x, wc, A, Bp, mask, *, activation: str, cats: bool,
                         torch.full_like(scores, NEG)).amax(dim=0)
     idx = select_clusters(union.reshape(G, nc_g, cs).amax(dim=-1), kc)
     groups = torch.arange(G, device=x.device)[:, None]
-    wsel = wc[groups, idx.long()].reshape(G * kc * cs, R, D)
+    if wq is None:
+        wsel = wc[groups, idx.long()]
+    else:
+        wsel = _gather_quant(wq, wsc, wout, idx).to(x.dtype)
+    wsel = wsel.reshape(G * kc * cs, R, D)
     act = activation_fn(activation)
     h = act(xf @ wsel[:, 0].float().T)                      # (B, K) fp32
     if R == 3:
@@ -77,3 +86,30 @@ def pick_disagreements(idx_a, idx_b, x, wc, A, Bp, mask, rel: float = 1e-5):
         tie = abs(va - vb) <= rel * max(abs(va), abs(vb), 1e-30)
         (near if tie else real).append((g, k, int(a[g, k]), int(b[g, k])))
     return near, real
+
+
+def _apply_bundle(x, wsel, activation: str):
+    """x (B, D), wsel (K, R, D) -> (B, D) fp32: gate/up dots in fp32, the
+    activation, h cast to the weight dtype, the down dot in fp32."""
+    act = activation_fn(activation)
+    xf = x.float()
+    h = act(xf @ wsel[:, 0].float().T)
+    if wsel.shape[1] == 3:
+        h = h * (xf @ wsel[:, 1].float().T)
+    return h.to(wsel.dtype).float() @ wsel[:, -1].float()
+
+
+def cluster_gather_ffn_ref(x, w, cluster_idx, *, activation: str,
+                           cluster_size: int):
+    """x (B, D); w (N, R, D) bundled neuron weights; cluster_idx (K,) ids
+    of clusters of `cluster_size` consecutive neurons. Returns the sum of
+    the bundled FFN over those clusters, (B, D) in x's dtype."""
+    N = w.shape[0]
+    wc = w.reshape(N // cluster_size, cluster_size, *w.shape[1:])
+    wsel = wc[cluster_idx.long()].reshape(-1, *w.shape[1:])
+    return _apply_bundle(x, wsel, activation).to(x.dtype)
+
+
+def dense_ffn_ref(x, w, *, activation: str):
+    """Dense bundled FFN. x (B, D), w (N, R, D) -> (B, D) in x's dtype."""
+    return _apply_bundle(x, w, activation).to(x.dtype)

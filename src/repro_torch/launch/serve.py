@@ -6,6 +6,8 @@ Plan (offline §5) -> permute weights hot-first -> ServeEngine (online
   PYTHONPATH=src python -m repro_torch.launch.serve --backend pallas \
       --bon 4 --max-new 32            # smollm-135m at full width
 
+`--storage-dtype int8|int4-mixed` serves quantized cold bundles.
+
 `--reduced` serves the 2-layer reduced config instead. Latencies the
 driver prints are the storage plane's *modeled* figures; the wall time
 is measured on the device it ran on.
@@ -70,10 +72,17 @@ def main(argv=None):
                     help="cold-path backend: 'pallas' runs the fused CUDA "
                          "kernel (the plain version on the CPU), 'jnp' the "
                          "plain PyTorch chain")
+    ap.add_argument("--storage-dtype",
+                    choices=("fp16", "int8", "int4-mixed"), default="fp16",
+                    help="cold-bundle storage dtype (§7.6): cold FFN "
+                         "bundles are quantized at prepare time, both cold "
+                         "paths dequantize at the gather boundary, and the "
+                         "storage plane prices the declared bundle bytes")
     args = ap.parse_args(argv)
 
     engine, cfg = build_engine(args.arch, args.reduced, args.offload,
-                               backend=args.backend, device=args.device)
+                               backend=args.backend, device=args.device,
+                               storage_dtype=args.storage_dtype)
     rng = np.random.default_rng(0)
     prompt = rng.integers(0, cfg.vocab_size,
                           (args.bon, args.prompt_len)).astype(np.int32)
@@ -86,7 +95,8 @@ def main(argv=None):
     io = sum(s.io_s for s in res.stats)
     eff = sum(s.effective_s for s in res.stats)
     print(f"arch={cfg.name} spec=powerinfer-2 storage={UFS40.name} "
-          f"device={engine.device} backend={args.backend}")
+          f"device={engine.device} backend={args.backend} "
+          f"storage_dtype={args.storage_dtype}")
     print(f"modeled decode: {res.tokens_per_s:.2f} tok/s | "
           f"cache hit {hit:.1%} | I/O share {io/max(eff, 1e-12):.1%}")
     print(f"modeled latency ms: mean {pct['mean']*1e3:.2f} "

@@ -84,7 +84,13 @@ def attn_decode(p: Attention, x, cfg: ModelConfig, angles, k_cache, v_cache,
 
 class FFN(nn.Module):
     """Bundled FFN weights w (N, R, D) and, when the config enables the
-    sparse FFN, the activation predictor A (D, r) / B (r, N)."""
+    sparse FFN, the activation predictor A (D, r) / B (r, N).
+
+    Quantized cold storage (`quant.storage.quantize_plan_params`) adds
+    the buffers wq (N, R, D) int8 codes, wsc (N, R) fp32 per-row scales
+    and, for int4-mixed, wout (N, R, D) fp16 outliers; they stay None for
+    fp16 storage. (Attention's wq is the query projection; these live on
+    the FFN module.)"""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -93,10 +99,17 @@ class FFN(nn.Module):
         rank = cfg.sparse_ffn.predictor_rank if cfg.sparse_ffn.enabled else 0
         self.pred_A = _param((D, rank), dtype, device) if rank else None
         self.pred_B = _param((rank, N), dtype, device) if rank else None
+        for name in ("wq", "wsc", "wout"):
+            self.register_buffer(name, None)
 
     @property
     def pred(self):
         return None if self.pred_A is None else (self.pred_A, self.pred_B)
+
+    @property
+    def quant(self):
+        """(wq, wsc, wout) of quantized cold storage, or None (fp16)."""
+        return None if self.wq is None else (self.wq, self.wsc, self.wout)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
@@ -109,4 +122,5 @@ class FFN(nn.Module):
 def apply_ffn_block(p: FFN, x, cfg: ModelConfig, plan, return_indices=False,
                     active_mask=None):
     return ffn_apply(p.w, p.pred, x, cfg.activation, cfg.sparse_ffn, plan,
-                     return_indices=return_indices, active_mask=active_mask)
+                     return_indices=return_indices, active_mask=active_mask,
+                     quant=p.quant)

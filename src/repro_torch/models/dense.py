@@ -92,7 +92,14 @@ def make_model(cfg: ModelConfig, device=None, seed: Optional[int] = 0):
 # -------------------------------------------------------------- forward ----
 
 def embed_tokens(model: DenseModel, tokens):
-    x = model.embed[tokens.long()]
+    """Embedding rows of `tokens`, with `jnp.take`'s rules for ids out of
+    range: an id in [-V, 0) wraps, any id >= V or < -V gives a NaN row
+    (V = the padded vocabulary)."""
+    V = model.embed.shape[0]
+    t = tokens.long()
+    ok = (t >= -V) & (t < V)
+    x = model.embed[torch.where(ok, t, 0)]          # negative ids wrap
+    x = torch.where(ok[..., None], x, torch.full_like(x, float("nan")))
     return x.to(dtype_of(model.cfg.compute_dtype))
 
 

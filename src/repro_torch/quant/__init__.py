@@ -1,2 +1,2 @@
-"""Storage-dtype accounting. The port stores cold bundles in fp16 only;
-quantized storage is a later slice."""
+"""Cold-bundle storage dtypes: byte accounting (`quantize.py`) and the
+int8 / int4-mixed bundle quantizers of the serving plane (`storage.py`)."""

@@ -11,8 +11,9 @@ Every family the engine can serve is one `ServingFamily` entry keyed on
 * `build_plan(cfg, freqs=None, *, hw, backend="jnp",
   storage_dtype="fp16")` — the ExecutionPlan of the bucketed decoder
   and the storage plane;
-* `prepare_params(model, plan)` — the offline weight transform (the
-  hot-first neuron permutation, in place).
+* `prepare_params(model, plan)` — the offline weight transform, in
+  place: the hot-first neuron permutation, then the cold bundles'
+  quantization to the plan's storage dtype.
 
 The port serves the dense family so far; vlm and moe come in later
 slices.
@@ -75,9 +76,9 @@ def _dense_build_plan(cfg, freqs=None, *, hw, backend="jnp",
 
 def _dense_prepare(model, plan):
     from repro_torch.core.planner import permute_ffn_params
-    from repro_torch.quant.storage import plan_storage_dtype
-    plan_storage_dtype(plan)           # fp16 only until quantized storage
-    return permute_ffn_params(model, plan.neuron_order)
+    from repro_torch.quant.storage import quantize_plan_params
+    model = permute_ffn_params(model, plan.neuron_order)
+    return quantize_plan_params(model, plan)
 
 
 def _dense_family(name: str, arch: str) -> ServingFamily:

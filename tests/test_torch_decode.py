@@ -74,3 +74,15 @@ def test_prefill_and_decode_match_jax(models, backend):
                                    rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(tcache["k"].numpy(), np.asarray(jcache["k"]),
                                rtol=1e-4, atol=1e-4)
+
+
+def test_embed_tokens_out_of_range_matches_jnp_take(models):
+    """Ids in [-V, 0) wrap and ids >= V or < -V give a NaN row, as
+    jnp.take does (V = the padded vocabulary)."""
+    jcfg, params, _, _, model, _ = models
+    V = jcfg.vocab_padded
+    ids = np.array([[0, -1, V - 1, V, V + 5, -V - 1, -V]], np.int32)
+    je = np.asarray(jdense.embed_tokens(params, jcfg, jnp.asarray(ids)))
+    te = tdense.embed_tokens(model, torch.from_numpy(ids)).numpy()
+    np.testing.assert_array_equal(te, je)
+    assert np.isnan(te[0, 3:6]).all() and np.isfinite(te[0, [0, 1, 2, 6]]).all()

@@ -1,4 +1,5 @@
-"""The CUDA fused_cold_ffn kernel against its plain PyTorch version, on
+"""The CUDA kernels (fused_cold_ffn in its fp and quant modes,
+cluster_gather_ffn, dense_ffn) against their plain PyTorch versions, on
 the card. Marked `gpu`: without a card each test skips with a reason.
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -12,7 +13,10 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import fused_cold_ffn_ref, pick_disagreements
+from repro_torch.kernels.ref import (
+    cluster_gather_ffn_ref, dense_ffn_ref, fused_cold_ffn_ref,
+    pick_disagreements)
+from repro_torch.quant.storage import quantize_bundles
 
 # (B, D, r, cs, G, nc_g, R, kc, activation, mode, dtype)
 CASES = [
@@ -49,17 +53,17 @@ def _inputs(B, D, r, cs, G, nc_g, R, dtype, device, seed=0):
     return x, wc, A, Bp
 
 
-def _check(x, wc, A, Bp, mask, act, mode, kc):
+def _check(x, wc, A, Bp, mask, act, mode, kc, **quant):
     tol = 5e-2 if x.dtype == torch.bfloat16 else 2e-4
     before = ops.fused_cold_ffn.launches
     y, idx = ops.fused_cold_ffn(x, wc, A, Bp, activation=act, mode=mode,
-                                kc=kc, active_mask=mask)
+                                kc=kc, active_mask=mask, **quant)
     torch.cuda.synchronize()
     assert ops.fused_cold_ffn.launches == before + 1
     m = torch.ones(x.shape[0], device=x.device) if mask is None \
         else mask.float()
     yr, ir = fused_cold_ffn_ref(x, wc, A, Bp, m, activation=act,
-                                cats=mode == "cats", kc=kc)
+                                cats=mode == "cats", kc=kc, **quant)
     near, real = pick_disagreements(idx, ir, x, wc, A, Bp, m)
     assert not real, f"picks differ beyond fp32 ties: {real}"
     if not near:
@@ -103,3 +107,77 @@ def test_fused_cold_ffn_column_slice_and_repeat(cuda):
                                 mode="cats", kc=2)
     assert torch.equal(y1, y2) and torch.equal(i1, i2)
     _check(x, wc, A, Bp, None, "silu", "cats", 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sd", ["int8", "int4-mixed"])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+def test_fused_cold_ffn_quant_matches_plain(cuda, case, sd):
+    B, D, r, cs, G, nc_g, R, kc, act, mode, dtype = case
+    x, wc, A, Bp = _inputs(B, D, r, cs, G, nc_g, R, dtype, cuda, seed=1)
+    _check(x, wc, A, Bp, None, act, mode, kc, **quantize_bundles(wc, sd))
+
+
+# (B, D, N, R, cs, activation, dtype): the reference's sweep shapes plus
+# prefill-sized B and an N that 512 does not divide
+GATHER_CASES = [
+    (1, 64, 256, 3, 32, "silu", torch.float32),
+    (4, 128, 512, 3, 64, "relu2", torch.bfloat16),
+    (8, 256, 1024, 2, 128, "gelu", torch.float32),
+    (2, 384, 768, 3, 128, "geglu", torch.bfloat16),
+    (1, 576, 1536, 3, 64, "silu", torch.bfloat16),
+    (32, 576, 1472, 3, 64, "silu", torch.bfloat16),
+    (300, 576, 1536, 3, 64, "silu", torch.bfloat16),
+    (300, 200, 1472, 2, 32, "gelu", torch.float32),
+]
+
+
+def _gather_inputs(B, D, N, R, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device, dtype)
+    return t(rng.standard_normal((B, D)) * 0.5), \
+        t(rng.standard_normal((N, R, D)) * 0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GATHER_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_gather_and_dense_match_plain(cuda, case):
+    B, D, N, R, cs, act, dtype = case
+    tol = 5e-2 if dtype == torch.bfloat16 else 2e-4
+    x, w = _gather_inputs(B, D, N, R, dtype, cuda)
+    n_clusters = N // cs
+    idx = torch.from_numpy(np.random.default_rng(1).permutation(
+        n_clusters)[:max(1, n_clusters // 2)].astype(np.int32)).to(cuda)
+    g0, d0 = ops.cluster_gather_ffn.launches, ops.dense_ffn.launches
+    y = ops.cluster_gather_ffn(x, w, idx, activation=act, cluster_size=cs)
+    yd = ops.dense_ffn(x, w, activation=act)
+    torch.cuda.synchronize()
+    assert (ops.cluster_gather_ffn.launches, ops.dense_ffn.launches) == \
+        (g0 + 1, d0 + 1)
+    assert y.dtype == yd.dtype == dtype
+    torch.testing.assert_close(
+        y.float(), cluster_gather_ffn_ref(x, w, idx, activation=act,
+                                          cluster_size=cs).float(),
+        atol=tol, rtol=tol)
+    torch.testing.assert_close(
+        yd.float(), dense_ffn_ref(x, w, activation=act).float(),
+        atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_gather_grouped_and_repeat(cuda):
+    """The grouped form offsets ids by g * nc_g; two runs agree bit for
+    bit (no atomics)."""
+    G, nc_g, cs, D, B = 3, 4, 32, 64, 5
+    x, w = _gather_inputs(B, D, G * nc_g * cs, 3, torch.float32, cuda)
+    wc = w.reshape(G, nc_g, cs, 3, D)
+    cidx = torch.tensor([[0, 2], [1, 3], [0, 1]], dtype=torch.int32,
+                        device=cuda)
+    y1 = ops.cluster_gather_ffn_grouped(x, wc, cidx, activation="silu")
+    y2 = ops.cluster_gather_ffn_grouped(x, wc, cidx, activation="silu")
+    assert torch.equal(y1, y2)
+    ref = sum(cluster_gather_ffn_ref(x, wc[g].reshape(nc_g * cs, 3, D),
+                                     cidx[g], activation="silu",
+                                     cluster_size=cs) for g in range(G))
+    torch.testing.assert_close(y1, ref, atol=2e-4, rtol=2e-4)

@@ -1,7 +1,8 @@
 """Port hygiene: the port and chip_smoke.py import no jax and nothing of
 the JAX package; entry points refuse a missing card instead of running
 on the CPU; the pieces the parity tests do not reach (zombie KV lanes,
-fp16-only storage accounting, the CLI) behave as documented."""
+storage accounting, the CLI at every storage dtype, where the quantized
+containers live) behave as documented."""
 import subprocess
 import sys
 import textwrap
@@ -37,6 +38,24 @@ def test_port_and_smoke_import_no_jax():
     assert int(out.stdout.strip()) >= 25     # every module was imported
 
 
+def test_every_cuda_source_is_built_and_bound():
+    """Each csrc/*.cu is in build.SOURCES with a ctypes signature whose
+    pointer/int sequence matches its extern "C" launch function, and the
+    wrappers never reach nvcc for CPU tensors."""
+    import re
+    from repro_torch.kernels import build
+    srcs = sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    assert sorted(build.SOURCES) == srcs == sorted(build._ARGTYPES)
+    for name in srcs:
+        text = (build.CSRC / f"{name}.cu").read_text()
+        sig = re.search(rf"int {name}_launch\(([^)]*)\)", text).group(1)
+        kinds = [build._P if ("*" in a) else build._I
+                 for a in sig.split(",")]
+        assert kinds == build._ARGTYPES[name], name
+        assert f"const char* {name}_error_string(int code)" in text
+        assert "Replaces the Pallas TPU kernel" in text
+
+
 def test_entry_points_refuse_a_missing_card(monkeypatch):
     from repro_torch.launch.serve import build_engine
     from repro_torch.models.dense import make_model
@@ -64,20 +83,25 @@ def test_zombie_lane_writes_wrap_the_ring():
 
 
 def test_storage_accounting_is_fp16_only():
+    """fp16 is the one storage dtype priced unpadded (rows * d * itemsize,
+    the legacy accounting); int8 and int4-mixed are padded to the 4 KiB
+    read block, as the reference prices them, and no longer raise."""
     from repro.quant.quantize import bundle_nbytes as jbytes
     from repro_torch.core.clusters import make_plan
     from repro_torch.core.planner import ExecutionPlan, PHONE
-    from repro_torch.quant.quantize import bundle_nbytes
+    from repro_torch.quant.quantize import BUNDLE_ALIGN, bundle_nbytes
     from repro_torch.quant.storage import plan_storage_dtype
     assert bundle_nbytes(576, "fp16") == jbytes(576, "fp16") == 3456
     for sd in ("int8", "int4-mixed"):
-        with pytest.raises(NotImplementedError, match="quantized-storage"):
-            bundle_nbytes(576, sd)
+        assert bundle_nbytes(576, sd) == jbytes(576, sd) == BUNDLE_ALIGN
+        assert bundle_nbytes(576, sd, align=0) == jbytes(576, sd, align=0)
     plan = ExecutionPlan("x", 512, 32, np.zeros((1, 512), np.int32),
                          np.zeros((1, 512), np.float32),
                          {1: make_plan(512, 0.25, 0.2, 32,
                                        storage_dtype="int8")}, PHONE)
-    with pytest.raises(NotImplementedError, match="quantized-storage"):
+    assert plan_storage_dtype(plan) == "int8"
+    plan.plans[2] = make_plan(512, 0.25, 0.2, 32)
+    with pytest.raises(ValueError, match="disagree"):
         plan_storage_dtype(plan)
 
 
@@ -87,6 +111,32 @@ def test_serve_cli_on_cpu(capsys):
           "2", "--max-new", "3", "--temperature", "0"])
     out = capsys.readouterr().out
     assert "modeled decode" in out and "6 tokens on cpu" in out
+
+
+@pytest.mark.parametrize("sd", ["int8", "int4-mixed"])
+def test_serve_cli_quantized_on_cpu(capsys, sd):
+    from repro_torch.launch.serve import main
+    main(["--reduced", "--device", "cpu", "--backend", "pallas",
+          "--storage-dtype", sd, "--temperature", "0", "--max-new", "4"])
+    out = capsys.readouterr().out
+    assert f"storage_dtype={sd}" in out and "4 tokens on cpu" in out
+
+
+def test_quantized_model_keeps_codes_on_the_ffn():
+    """The quantized containers live on each layer's FFN module, beside
+    attention's own wq, and move with the model."""
+    from repro_torch.launch.serve import build_engine
+    engine, cfg = build_engine(device="cpu", storage_dtype="int4-mixed")
+    layer = engine.model.layers[0]
+    wq, wsc, wout = layer.ffn.quant
+    N, R, D = layer.ffn.w.shape
+    assert (wq.dtype, wsc.dtype, wout.dtype) == (torch.int8, torch.float32,
+                                                 torch.float16)
+    assert wq.shape == wout.shape == (N, R, D) and wsc.shape == (N, R)
+    assert layer.attn.wq.dtype == torch.float32
+    assert {"ffn.wq", "ffn.wsc", "ffn.wout"} <= {
+        n.split("layers.0.")[-1] for n, _ in engine.model.named_buffers()}
+    engine.close()
 
 
 def test_sampler_greedy_and_seeded():

@@ -110,8 +110,23 @@ def test_plain_chain_top_k_ties_match_lax():
 
 
 def test_fused_cold_ffn_rejects_quantized_operands():
+    """Quantized operands that do not fit the kernel are refused: codes
+    that are not int8, scales missing or of the wrong shape, a sidecar
+    without codes (well-formed ones are held to the reference in
+    test_torch_quant.py)."""
+    from repro_torch.quant.storage import quantize_bundles
     x, wc, A, Bp = (torch.from_numpy(a) for a in
                     _inputs(1, 64, 8, 32, 1, 2, 3, seed=0))
-    with pytest.raises(NotImplementedError, match="quantized-storage"):
-        tops.fused_cold_ffn(x, wc, A, Bp, activation="silu", kc=1,
-                            wq=wc.to(torch.int8))
+    q = quantize_bundles(wc, "int4-mixed")
+    call = lambda **kw: tops.fused_cold_ffn(x, wc, A, Bp, activation="silu",
+                                            kc=1, **kw)
+    with pytest.raises(TypeError, match="wq is torch.float32"):
+        call(wq=wc, wsc=q["wsc"])
+    with pytest.raises(ValueError, match="per-row scales"):
+        call(wq=q["wq"])
+    with pytest.raises(ValueError, match="wsc has shape"):
+        call(wq=q["wq"], wsc=q["wsc"][..., :2])
+    with pytest.raises(ValueError, match="without the int8 codes"):
+        call(wout=q["wout"])
+    with pytest.raises(TypeError, match="wout is torch.float32"):
+        call(wq=q["wq"], wsc=q["wsc"], wout=q["wout"].float())
