@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only kernel,quant,times,...]
 
 Phases, in order; any failed check raises and the script exits non-zero
 without printing a result:
@@ -10,10 +10,15 @@ without printing a result:
             and prints the -Xptxas -v report;
 3. kernel — fused_cold_ffn against its plain PyTorch version on the card
             (ids identical but for fp64-confirmed near ties; y within
-            2e-4 in fp32, 5e-2 in bf16, the reference's tolerances),
-            then CUDA-event times beside the card's bound;
+            2e-4 in fp32, 5e-2 in bf16, the reference's tolerances), at
+            the main path's shapes and past them: B up to 300, D = 200
+            and 203, Bp at an odd column offset, two runs bit-identical;
    quant  — the same for its quant mode (int8 and int4-mixed codes; ids
-            identical), timed at the main path's shapes;
+            identical);
+   times  — fused_cold_ffn at the main path's shapes, B 1/4/32, fp,
+            int8 and int4-mixed: CUDA-event time per call, the same in
+            one CUDA graph, each of its five kernels' device time per
+            call (torch.profiler), the plain version, the card's bound;
    gather — cluster_gather_ffn and dense_ffn against their plain
             versions (the reference's sweep, B up to 300, N = 1472 that
             512 does not divide), timed beside the port's torch.matmul
@@ -32,11 +37,15 @@ without printing a result:
             picked (relu mode) against fused_cold_ffn's output;
 7. summary — a JSON line of every kernel, then {"ok": true, ...}.
 
-It imports the port only (never jax or the JAX package) and runs on the
-card only: without one it exits non-zero at once.
+`--only` runs the card and build phases and then the named ones, and
+prints no summary and no result line (to time another tree's kernel:
+copy this file into its root and run `--only times` there). It imports
+the port only (never jax or the JAX package) and runs on the card only:
+without one it exits non-zero at once.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -87,31 +96,43 @@ def card_line() -> str:
 
 # ----------------------------------------------------------- phase 3 ----
 
-def kernel_inputs(B, D, r, cs, G, nc_g, R, dtype, seed):
+def kernel_inputs(B, D, r, cs, G, nc_g, R, dtype, seed, bp_offset=0):
+    """x, wc, A and Bp; with `bp_offset` > 0, Bp is the column slice
+    [:, bp_offset:] of a wider predictor (the engine's layout), so its
+    rows start where a 16-byte vector load would not."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
     return (t(rng.standard_normal((B, D)) * 0.5),
             t(rng.standard_normal((G, nc_g, cs, R, D)) * 0.1),
             t(rng.standard_normal((D, r)) / np.sqrt(D)),
-            t(rng.standard_normal((r, G * nc_g * cs)) / np.sqrt(r)))
+            t(rng.standard_normal((r, bp_offset + G * nc_g * cs))
+              / np.sqrt(r))[:, bp_offset:])
 
 
-def check_case(name, B, dtype, mask_kind="live", seed=0, sd=None, **over):
+def check_case(name, B, dtype, mask_kind="live", seed=0, sd=None,
+               bp_offset=0, repeat=False, **over):
     """One fused_cold_ffn case against its plain version; `sd` (int8 or
     int4-mixed) runs the quant mode on the codes of the same weights,
-    where the ids must be identical."""
+    where the ids must be identical. `repeat` also runs the kernel a
+    second time and requires the same bits."""
     s = dict(MAIN, **over)
     x, wc, A, Bp = kernel_inputs(B, s["D"], s["r"], s["cs"], s["G"],
-                                 s["nc_g"], s["R"], dtype, seed)
+                                 s["nc_g"], s["R"], dtype, seed, bp_offset)
     quant = {} if sd is None else quantize_bundles(wc, sd)
     mask = torch.ones(B, dtype=torch.bool, device="cuda")
     if mask_kind == "some":
         mask[1::2] = False
     elif mask_kind == "none":
         mask[:] = False
-    y, idx = ops.fused_cold_ffn(x, wc, A, Bp, activation=s["act"],
-                                mode=s["mode"], kc=s["kc"], active_mask=mask,
-                                **quant)
+    run = lambda: ops.fused_cold_ffn(x, wc, A, Bp, activation=s["act"],
+                                     mode=s["mode"], kc=s["kc"],
+                                     active_mask=mask, **quant)
+    y, idx = run()
+    if repeat:
+        y2, idx2 = run()
+        torch.cuda.synchronize()
+        if not (torch.equal(y, y2) and torch.equal(idx, idx2)):
+            raise AssertionError(f"{name}: two runs differ")
     torch.cuda.synchronize()
     yr, ir = fused_cold_ffn_ref(x, wc, A, Bp, mask.float(),
                                 activation=s["act"],
@@ -130,9 +151,27 @@ def check_case(name, B, dtype, mask_kind="live", seed=0, sd=None, **over):
     tol = TOL[dtype]
     if not torch.allclose(y, yr, atol=tol, rtol=tol):
         raise AssertionError(f"{name}: max |y - plain| = {err} over tol {tol}")
-    print(f"  {name}: ids identical, max |y - plain| = {err:.3e} "
-          f"(tol {tol})")
+    print(f"  {name}: ids identical{', two runs bit-identical' if repeat else ''}"
+          f", max |y - plain| = {err:.3e} (tol {tol})")
     return err
+
+
+def edge_cases(sd=None):
+    """The cases beyond the main path's shapes, in the fp mode (sd None)
+    or a quant mode: B past 64, D whose rows are not 16-byte multiples
+    (200; 203, odd), Bp at an odd column offset, and two runs at B = 32
+    that must agree bit for bit."""
+    bf16, tag = torch.bfloat16, "" if sd is None else f"{sd} "
+    errs = [check_case(f"{tag}B={B} bf16", B, bf16, seed=B, sd=sd)
+            for B in (65, 128, 300)]
+    for D in (200, 203):
+        errs.append(check_case(f"{tag}D={D} bf16", 16, bf16, D=D, kc=2,
+                               seed=D, sd=sd))
+    errs.append(check_case(f"{tag}Bp at column offset 65", 8, bf16,
+                           bp_offset=65, kc=2, seed=65, sd=sd))
+    errs.append(check_case(f"{tag}repeat B=32", 32, bf16, seed=32, sd=sd,
+                           repeat=True))
+    return errs
 
 
 def cuda_time_ms(fn, iters=200, warmup=20) -> float:
@@ -214,36 +253,15 @@ def phase_kernel():
                            seed=17))
     errs.append(check_case("all rows dead", 8, bf16, mask_kind="none",
                            kc=4, seed=18))
-
-    timings = {}
-    for B in (1, 4, 32):
-        x, wc, A, Bp = kernel_inputs(B, MAIN["D"], MAIN["r"], MAIN["cs"],
-                                     MAIN["G"], MAIN["nc_g"], MAIN["R"],
-                                     bf16, seed=100 + B)
-        mask = torch.ones(B, device="cuda")
-        kw = dict(activation="silu", mode="cats", kc=1)
-        kern = lambda: ops.fused_cold_ffn(x, wc, A, Bp, **kw)
-        plain = lambda: fused_cold_ffn_ref(x, wc, A, Bp, mask,
-                                           activation="silu", cats=True,
-                                           kc=1)
-        ms = cuda_time_ms(kern)
-        dev_ms = graph_time_ms(kern)
-        plain_ms = cuda_time_ms(plain)
-        b_ms, b_by = bound(B, bf16)
-        timings[B] = dict(ms=ms, graph_ms=dev_ms, plain_ms=plain_ms,
-                          bound_ms=b_ms, bound_by=b_by)
-        print(f"  B={B:2d} bf16: kernel {ms * 1e3:.2f} us/call "
-              f"({dev_ms * 1e3:.2f} us in a CUDA graph), plain "
-              f"{plain_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us "
-              f"({b_by})")
-    return max(errs), timings
+    errs += edge_cases()
+    return max(errs)
 
 
 def phase_quant():
     print("== phase 3 (quant): fused_cold_ffn quant mode against its "
           "plain version")
     bf16, f32 = torch.bfloat16, torch.float32
-    errs, timings = [], {}
+    errs = []
     for sd in QUANT:
         for B in (1, 4, 32, 64):
             errs.append(check_case(f"{sd} B={B} bf16", B, bf16, seed=B,
@@ -259,11 +277,50 @@ def phase_quant():
                                seed=15, sd=sd))
         errs.append(check_case(f"{sd} dead rows", 8, bf16, mask_kind="some",
                                kc=4, seed=17, sd=sd))
+        errs += edge_cases(sd)
+    return max(errs)
+
+
+SUBKERNELS = ("hidden_kernel", "score_kernel", "select_kernel",
+              "gate_up_kernel", "down_kernel")
+
+
+def subkernel_us(fn, iters=200):
+    """Device time per call (us) of each of fused_cold_ffn's five kernels,
+    by torch.profiler over `iters` calls; None when the profiler saw no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(SUBKERNELS, 0.0)
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for k in SUBKERNELS:
+            if f"::{k}" in e.key:
+                out[k] += e.self_device_time_total / iters
+    return out if any(out.values()) else None
+
+
+def phase_times():
+    """fused_cold_ffn at the main path's shapes, bf16, B 1/4/32, in the fp
+    mode and both quant modes: time per call (CUDA events over 200
+    calls), the same calls in one CUDA graph, each of the five kernels'
+    device time per call (torch.profiler), the plain version's time and
+    the card's bound. Keys: (storage dtype, B)."""
+    print("== phase 3 (times): fused_cold_ffn per call and per kernel")
+    bf16, timings = torch.bfloat16, {}
+    for sd in ("fp16",) + QUANT:
         for B in (1, 4, 32):
             x, wc, A, Bp = kernel_inputs(
                 B, MAIN["D"], MAIN["r"], MAIN["cs"], MAIN["G"], MAIN["nc_g"],
                 MAIN["R"], bf16, seed=100 + B)
-            q = quantize_bundles(wc, sd)
+            q = {} if sd == "fp16" else quantize_bundles(wc, sd)
             mask = torch.ones(B, device="cuda")
             kern = lambda: ops.fused_cold_ffn(x, wc, A, Bp, activation="silu",
                                               mode="cats", kc=1, **q)
@@ -271,16 +328,21 @@ def phase_quant():
                                                activation="silu", cats=True,
                                                kc=1, **q)
             ms, dev_ms = cuda_time_ms(kern), graph_time_ms(kern)
+            sub = subkernel_us(kern)
             plain_ms = cuda_time_ms(plain)
-            b_ms, b_by = bound(B, bf16, sd)
+            b_ms, b_by = bound(B, bf16, None if sd == "fp16" else sd)
             timings[(sd, B)] = dict(ms=ms, graph_ms=dev_ms,
                                     plain_ms=plain_ms, bound_ms=b_ms,
-                                    bound_by=b_by)
+                                    bound_by=b_by, subkernel_us=sub)
+            parts = "not measured (no CUDA events)" if sub is None else \
+                ", ".join(f"{k.removesuffix('_kernel')} {v:.2f}"
+                          for k, v in sub.items()) + " us"
             print(f"  {sd} B={B:2d} bf16: kernel {ms * 1e3:.2f} us/call "
                   f"({dev_ms * 1e3:.2f} us in a CUDA graph), plain "
                   f"{plain_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us "
                   f"({b_by})")
-    return max(errs), timings
+            print(f"    per call: {parts}")
+    return timings
 
 
 def check_gather(B, D, N, R, cs, act, dtype, seed=0):
@@ -612,7 +674,18 @@ def phase_api(batch=4):
     return launches
 
 
-def main():
+PHASES = ("kernel", "quant", "times", "gather", "serve", "parity", "api")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", type=lambda v: v.split(","), default=None,
+                    help="comma-separated phases to run after the card and "
+                         f"the build, of {','.join(PHASES)}; the summary "
+                         "and the result line need them all")
+    only = ap.parse_args(argv).only
+    if only is not None and not set(only) <= set(PHASES):
+        ap.error(f"--only takes phases of {PHASES}, got {only}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -633,28 +706,37 @@ def main():
         print(b.report.rstrip())
     print(f"  build phase {time.perf_counter() - t0:.1f} s")
 
-    max_err, timings = phase_kernel()
-    q_err, q_timings = phase_quant()
-    g_err, g_timings = phase_gather()
-    serve = phase_serve()
-    q_serve = {sd: phase_serve(sd) for sd in QUANT}
-    phase_parity()
-    phase_parity("int4-mixed")
-    api = phase_api()
+    run = set(PHASES if only is None else only)
+    max_err = phase_kernel() if "kernel" in run else None
+    q_err = phase_quant() if "quant" in run else None
+    times = phase_times() if "times" in run else None
+    g_err, g_timings = phase_gather() if "gather" in run else (None, None)
+    if "serve" in run:
+        serve = phase_serve()
+        q_serve = {sd: phase_serve(sd) for sd in QUANT}
+    if "parity" in run:
+        phase_parity()
+        phase_parity("int4-mixed")
+    api = phase_api() if "api" in run else None
+    if run != set(PHASES):
+        print(f"chip_smoke: ran phases {sorted(run)} only; no summary")
+        return 0
 
     print("== phase 7: summary")
     src = "src/repro_torch/kernels/csrc/"
     shape = "B=1 D=576 r=64 cs=64 nc_g=23 R=3 kc=1 bf16"
-    t1, q1 = timings[1], q_timings[("int8", 1)]
+    t1, q1 = times[("fp16", 1)], times[("int8", 1)]
     rows = [{
         "name": "fused_cold_ffn", "route": "cuda",
         "source": src + "fused_cold_ffn.cu",
-        "replaces": "src/repro/kernels/cluster_gather_ffn.py:273",
+        "replaces": "src/repro/kernels/cluster_gather_ffn.py:275",
         "checked": True, "launches": serve["launches"],
         "max_abs_err": max_err, "ms": t1["ms"], "plain_ms": t1["plain_ms"],
         "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
         "library_ms": None, "graph_ms": t1["graph_ms"], "shape": shape,
-        "by_batch": {str(b): v for b, v in timings.items()},
+        "subkernel_us": t1["subkernel_us"],
+        "by_batch": {str(b): v for (sd, b), v in times.items()
+                     if sd == "fp16"},
         "decode_steps": serve["steps"]}, {
         "name": "fused_cold_ffn (quant mode)", "route": "cuda",
         "source": src + "fused_cold_ffn.cu",
@@ -665,8 +747,9 @@ def main():
         "bound_ms": q1["bound_ms"], "bound_by": q1["bound_by"],
         "library_ms": None, "graph_ms": q1["graph_ms"],
         "shape": shape + " int8",
+        "subkernel_us": q1["subkernel_us"],
         "by_dtype_batch": {f"{sd} B={b}": v
-                           for (sd, b), v in q_timings.items()},
+                           for (sd, b), v in times.items() if sd != "fp16"},
         "launches_by_dtype": {sd: v["launches"] for sd, v in q_serve.items()},
         "decode_steps": {sd: v["steps"] for sd, v in q_serve.items()}}]
     for name, line, shape_g in (

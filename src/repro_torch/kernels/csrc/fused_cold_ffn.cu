@@ -16,48 +16,78 @@
 //   w = cast_T(q * sc)          int8
 //   w = cast_T(q * sc + o)      int4-mixed
 // with the product and the sum each rounded to fp32 (__fmul_rn,
-// __fadd_rn: nvcc would contract them into one FMA and round once). The
-// selection kernels read only the predictor and do not change.
+// __fadd_rn: nvcc would contract them into one FMA and round once):
+// gate_up reads each weight through load_w, down a run of 16 bytes of T
+// through load_w_vec, with the same roundings. The selection kernels
+// read only the predictor and do not change.
 //
-// What bounds it on this card: bytes. At the main path's shapes (B <= 64,
-// D = 576, r = 64, cs = 64, R = 3, kc = 1, bf16) one call reads ~0.5 MB
-// (predictor 262 KB + one 221 KB bundle; int8 codes 111 KB, int4-mixed
-// codes + sidecar 332 KB) and does ~20 MFLOP at B = 64, far under the
-// 295 FLOP/byte ridge; at B = 1 launch latency dominates.
+// What bounds it on this card. By bytes, little: at the main path's
+// shapes (D = 576, r = 64, cs = 64, 23 cold clusters, R = 3, kc = 1,
+// bf16) one call reads ~0.5 MB (predictor 262 KB + one 221 KB bundle;
+// int8 codes 111 KB, int4-mixed codes + sidecar 332 KB), 0.15 us at the
+// card's memory rate, and does ~0.5 MFLOP per row of x, far under the
+// 295 FLOP/byte ridge. What costs time is latency: how many global loads a
+// thread waits for one after the other, and the launches. So no thread
+// walks a long chain of dependent global loads: each block issues the
+// loads it needs together (16-byte cp.async into shared memory, or
+// 16-byte register loads), then computes from shared memory and
+// registers. Tensor cores would be padding at decode batch and are not
+// used.
 //
 // Design. The TPU grid (groups,) runs in order on one core, and
 // single-device plans have G = 1, so one block per group would put the
 // whole cold path on one SM. Here the call is five short kernels on the
 // caller's stream, each spread over many blocks:
-//   1. hidden   h = x.A                     grid (B)
-//   2. score    scores = h.Bp, plus the     grid (clusters, row chunks)
-//               masked max of each (row chunk, cluster) tile
-//   3. select   cluster max over row chunks grid (G)
+//   1. hidden   h partials, one per 64 rows  grid (D / 64, r / 64, B / 16)
+//               of A: A's slice and x's
+//               matching columns staged
+//   2. score    h = sum of the partials,     grid (clusters, B / 8)
+//               scores = h.Bp from a staged
+//               Bp tile (r split over the
+//               threads cs leaves over),
+//               masked tile maxima
+//   3. select   cluster max over row chunks  grid (G)
 //               and kc ordered picks
-//   4. gate_up  H = cast(act(x.Wg)*(x.Wu)   grid (G*kc picks, neuron tiles)
-//               * cats)                     one warp per neuron
-//   5. down     y = H.Wd                    grid (D / 32 column tiles)
-// No bundle is staged whole in shared memory (one bf16 bundle at cs = 64,
-// D = 576 is 221 KB, two would exceed the 227 KB a block may hold): each
-// warp streams its neuron's rows from global memory. Every sum runs in a
-// fixed order (sequential loops and a fixed shuffle tree, no atomics), so
-// runs repeat bit for bit. Scratch (h, scores, tile maxima, H) is
-// allocated by the caller.
+//   4. gate_up  H = cast(act(x.Wg)*(x.Wu)    grid (G*kc picks, neuron tiles)
+//               * cats)                      one warp per neuron
+//   5. down     y = H.Wd: H and the picked   grid (D / 64, B / 4)
+//               rows' offsets staged, each
+//               thread 16 bytes of columns,
+//               neurons split over slices
+// Any B: rows are tiled over the grid (row tiles past 65535 loop inside
+// the block). Any D, row stride or pointer: a vector run that is not
+// 16-byte aligned, or runs past the row's end, is loaded one element at
+// a time inside the kernel. No bundle is staged whole in shared memory
+// (one bf16 bundle is 221 KB at the main shapes). Every sum runs in a
+// fixed order (sequential loops, then the D splits, score's thread groups
+// or down's neuron slices added in order, a fixed shuffle tree; no
+// atomics), so runs repeat bit for bit. Scratch
+// (h partials, scores, tile maxima, H) is allocated by the caller.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cstdint>
+#include <cstring>
 #include <cfloat>
 #include <climits>
 #include <cmath>
 
 namespace {
 
+constexpr int kThreads = 256;   // threads of a hidden, score or down block
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxGridY = 65535;  // row tiles beyond it loop inside the block
+constexpr int kHidD = 64;       // rows of A per hidden block: the D split
+constexpr int kHidCols = 64;    // columns of A per hidden block
+constexpr int kHidRows = 16;    // rows of x per hidden block
 constexpr int kScoreRows = 8;   // rows of x per score block
+constexpr int kScoreCols = 4;   // columns per score thread: cs <= 4 * kThreads
+constexpr int kScoreStage = 12288;  // bytes of Bp a score block stages at once
 constexpr int kGateWarps = 4;   // neurons per gate_up block
-constexpr int kDownCols = 32;   // output columns per down block
-constexpr int kDownRowGroups = 8;
-constexpr int kMaxBatch = 64;   // kDownRowGroups * register accumulators
+constexpr int kDownRows = 4;    // rows of H per down block
+constexpr int kDownCols = 64;   // output columns per down block
+constexpr int kDownChunk = 256; // neurons whose H columns a down block stages at once
+constexpr int kDownGroup = 8;   // neurons whose weights a thread loads before it multiplies
 constexpr int kSelectThreads = 256;
 
 enum { ACT_SILU = 0, ACT_RELU2 = 1, ACT_GELU_TANH = 2 };
@@ -112,69 +142,189 @@ __device__ __forceinline__ float activate(float g, int act) {
   return 0.5f * g * (1.0f + tanhf(k0 * (g + 0.044715f * g * g * g)));
 }
 
-// 1. h[b, j] = sum_d x[b, d] * A[d, j], fp32, d in order.
+// 16-byte copy from global to shared memory that completes asynchronously:
+// a thread may issue many before it waits for any (cp_async_wait_all).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Copies a rows x cols tile of a row-major array (row stride ld elements)
+// into shared memory (row stride ldd), with all the block's threads: each
+// row's 16-byte-aligned middle in 16-byte cp.async copies (register
+// loads where the shared row is not aligned like the source), its ragged
+// head and tail in scalar loads. Every load of the tile is in flight
+// before any is waited for; the caller waits (cp_async_wait_all) and
+// synchronizes the block before it reads the tile.
 template <typename T>
-__global__ void hidden_kernel(const T* __restrict__ x, const T* __restrict__ A,
-                              float* __restrict__ h, int D, int r) {
-  const int b = blockIdx.x;
-  const T* xb = x + (size_t)b * D;
-  for (int j = threadIdx.x; j < r; j += blockDim.x) {
-    float acc = 0.0f;
-    for (int d = 0; d < D; ++d)
-      acc = fmaf(to_f(xb[d]), to_f(A[(size_t)d * r + j]), acc);
-    h[(size_t)b * r + j] = acc;
+__device__ __forceinline__ void stage_tile(T* __restrict__ dst, int ldd,
+                                           const T* __restrict__ src, size_t ld, int rows,
+                                           int cols) {
+  constexpr int V = 16 / sizeof(T);
+  const int slots = cols / V + 2;      // head, at most cols / V vectors, tail
+  for (int u = threadIdx.x; u < rows * slots; u += blockDim.x) {
+    const int i = u / slots, s = u - i * slots;
+    const T* p = src + (size_t)i * ld;
+    T* q = dst + (size_t)i * ldd;
+    const int head = min(cols, (int)(((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15) /
+                                     sizeof(T)));
+    const int nv = (cols - head) / V;
+    if (s == 0) {
+      for (int e = 0; e < head; ++e) q[e] = p[e];
+    } else if (s <= nv) {
+      const int e = head + (s - 1) * V;
+      if ((reinterpret_cast<uintptr_t>(q + e) & 15) == 0) {
+        cp_async16(q + e, p + e);
+      } else {
+        const uint4 v = *reinterpret_cast<const uint4*>(p + e);
+        T t[V];
+        memcpy(t, &v, sizeof(v));
+#pragma unroll
+        for (int k = 0; k < V; ++k) q[e + k] = t[k];
+      }
+    } else if (s == nv + 1) {
+      for (int e = head + nv * V; e < cols; ++e) q[e] = p[e];
+    }
   }
 }
 
-// 2. One block per (cluster, chunk of kScoreRows rows), one thread per
-// column of the cluster: scores[b, n] = sum_j h[b, j] * Bp[j, n], then the
-// max over the tile's live rows and columns. A masked row counts as
-// -FLT_MAX (finfo(f32).min), so an all-masked tile yields -FLT_MAX.
+// 1. Block (s, jt, z) stages rows [64 s, 64 s + 64) x columns [64 jt,
+// 64 jt + 64) of A and the matching columns of 16 rows of x in shared
+// memory, then writes the partial products
+//   part[s, b, j] = sum_{d in split s} x[b, d] * A[d, j]   (fp32, d in order)
+// Thread (j, g) owns column j for every fourth row of the tile: at most 64
+// sequential FMAs a row, all from shared memory. score_kernel adds the
+// D / 64 partials of each h[b, j] in split order.
 template <typename T>
-__global__ void score_kernel(const float* __restrict__ h, const T* __restrict__ Bp,
-                             int ldb, const float* __restrict__ mask,
-                             float* __restrict__ scores, float* __restrict__ tile_max,
-                             int B, int r, int Nc, int cs, int n_clusters) {
-  extern __shared__ float smem[];
-  float* hs = smem;                    // kScoreRows * r
-  float* warp_max = smem + kScoreRows * r;  // blockDim.x / 32
-  const int c = blockIdx.x;
-  const int b0 = blockIdx.y * kScoreRows;
-  const int nrows = min(kScoreRows, B - b0);
-  for (int i = threadIdx.x; i < nrows * r; i += blockDim.x)
-    hs[i] = h[(size_t)b0 * r + i];
-  __syncthreads();
-
-  float best = -INFINITY;              // identity for threads past cs
-  if (threadIdx.x < cs) {
-    const int n = c * cs + threadIdx.x;
-    float acc[kScoreRows];
-#pragma unroll
-    for (int q = 0; q < kScoreRows; ++q) acc[q] = 0.0f;
-    for (int j = 0; j < r; ++j) {
-      const float bv = to_f(Bp[(size_t)j * ldb + n]);
-#pragma unroll
-      for (int q = 0; q < kScoreRows; ++q)
-        if (q < nrows) acc[q] = fmaf(hs[q * r + j], bv, acc[q]);
-    }
-    best = -FLT_MAX;
-#pragma unroll
-    for (int q = 0; q < kScoreRows; ++q) {
-      if (q < nrows) {
-        scores[(size_t)(b0 + q) * Nc + n] = acc[q];
-        if (mask[b0 + q] > 0.0f) best = fmaxf(best, acc[q]);
+__global__ void __launch_bounds__(kThreads)
+hidden_kernel(const T* __restrict__ x, const T* __restrict__ A, float* __restrict__ part,
+              int B, int D, int r) {
+  __shared__ __align__(16) T As[kHidD * kHidCols];
+  __shared__ __align__(16) T xs[kHidRows * kHidD];
+  const int s = blockIdx.x;
+  const int d0 = s * kHidD, dl = min(kHidD, D - d0);
+  const int j0 = blockIdx.y * kHidCols, jl = min(kHidCols, r - j0);
+  const int j = threadIdx.x % kHidCols, g = threadIdx.x / kHidCols;
+  stage_tile(As, kHidCols, A + (size_t)d0 * r + j0, (size_t)r, dl, jl);
+  for (int b0 = blockIdx.z * kHidRows; b0 < B; b0 += gridDim.z * kHidRows) {
+    const int bl = min(kHidRows, B - b0);
+    stage_tile(xs, kHidD, x + (size_t)b0 * D + d0, (size_t)D, bl, dl);
+    cp_async_wait_all();
+    __syncthreads();
+    if (j < jl) {
+      for (int q = g; q < bl; q += kThreads / kHidCols) {
+        const T* xq = xs + q * kHidD;
+        float acc = 0.0f;
+        for (int d = 0; d < dl; ++d) acc = fmaf(to_f(xq[d]), to_f(As[d * kHidCols + j]), acc);
+        part[((size_t)s * B + b0 + q) * r + j0 + j] = acc;
       }
     }
+    __syncthreads();
   }
-  // max is exact, so the reduction order does not matter
-  for (int off = 16; off > 0; off >>= 1)
-    best = fmaxf(best, __shfl_down_sync(0xffffffffu, best, off));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = best;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float m = warp_max[0];
-    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m = fmaxf(m, warp_max[w]);
-    tile_max[(size_t)blockIdx.y * n_clusters + c] = m;
+}
+
+// 2. Block (c, chunk) owns cluster c's cs columns and kScoreRows rows.
+// It stages Bp's (r, cs) tile in shared memory (stage_rows rows of it at
+// a time) and, while the first stage is in flight, adds the hidden
+// kernel's D / 64 partials of each h[b, j] in split order into shared
+// memory. Thread t owns column t mod cs (and t + 256, ... when cs > 256)
+// for every row; where cs leaves threads over, the n_jg = 256 / cs
+// thread groups split r, group g taking j = g, g + n_jg, ... in order,
+// and group 0 adds the groups' sums in group order:
+//   scores[b, n] = sum_j h[b, j] * Bp[j, n]
+// Then the max over the tile's live rows and columns: a masked row counts
+// as -FLT_MAX (finfo(f32).min), so an all-masked tile yields -FLT_MAX.
+// Chunks past the grid loop inside the block.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)  // registers for acc, not occupancy
+score_kernel(const float* __restrict__ part, int n_split, const T* __restrict__ Bp, int ldb,
+             const float* __restrict__ mask, float* __restrict__ scores,
+             float* __restrict__ tile_max, int B, int r, int Nc, int cs, int n_clusters,
+             int stage_rows) {
+  extern __shared__ __align__(16) float score_smem[];
+  float* hs = score_smem;                           // kScoreRows * r
+  float* warp_max = hs + kScoreRows * r;            // kWarps
+  T* Bs = reinterpret_cast<T*>(warp_max + kWarps);  // stage_rows * cs
+  float* gsum = warp_max + kWarps;  // after the last stage: (n_jg - 1, kScoreRows, cs)
+  const int c = blockIdx.x;
+  const T* Bc = Bp + (size_t)c * cs;
+  const int n_jg = max(1, kThreads / cs);
+  const int jg = threadIdx.x / cs;               // 0 for every thread when cs > 256
+  const int cbase = threadIdx.x - jg * cs;
+  for (int chunk = blockIdx.y; chunk * kScoreRows < B; chunk += gridDim.y) {
+    const int b0 = chunk * kScoreRows;
+    const int nrows = min(kScoreRows, B - b0);
+    float acc[kScoreCols][kScoreRows];
+#pragma unroll
+    for (int k = 0; k < kScoreCols; ++k)
+#pragma unroll
+      for (int q = 0; q < kScoreRows; ++q) acc[k][q] = 0.0f;
+    for (int j0 = 0; j0 < r; j0 += stage_rows) {
+      const int jl = min(stage_rows, r - j0);
+      stage_tile(Bs, cs, Bc + (size_t)j0 * ldb, (size_t)ldb, jl, cs);
+      for (int i = threadIdx.x; j0 == 0 && i < nrows * r; i += kThreads) {
+        const float* p = part + (size_t)b0 * r + i;
+        float v = p[0];
+#pragma unroll 8
+        for (int s = 1; s < n_split; ++s) v += p[(size_t)s * B * r];
+        hs[i] = v;
+      }
+      cp_async_wait_all();
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < kScoreCols; ++k) {
+        const int col = cbase + k * kThreads;
+        if (jg < n_jg && col < cs) {
+          for (int j = jg; j < jl; j += n_jg) {
+            const float bv = to_f(Bs[j * cs + col]);
+            const float* hj = hs + j0 + j;
+#pragma unroll
+            for (int q = 0; q < kScoreRows; ++q)
+              if (q < nrows) acc[k][q] = fmaf(hj[q * r], bv, acc[k][q]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if (jg > 0 && jg < n_jg) {           // then cs <= 128: one column a thread
+#pragma unroll
+      for (int q = 0; q < kScoreRows; ++q)
+        if (q < nrows) gsum[((jg - 1) * kScoreRows + q) * cs + cbase] = acc[0][q];
+    }
+    __syncthreads();
+    float best = -INFINITY;              // identity for threads without a column
+#pragma unroll
+    for (int k = 0; k < kScoreCols; ++k) {
+      const int col = cbase + k * kThreads;
+      if (jg == 0 && col < cs) {
+        best = fmaxf(best, -FLT_MAX);
+#pragma unroll
+        for (int q = 0; q < kScoreRows; ++q) {
+          if (q < nrows) {
+            float v = acc[k][q];
+            for (int g = 1; g < n_jg; ++g) v += gsum[((g - 1) * kScoreRows + q) * cs + col];
+            scores[(size_t)(b0 + q) * Nc + (size_t)c * cs + col] = v;
+            if (mask[b0 + q] > 0.0f) best = fmaxf(best, v);
+          }
+        }
+      }
+    }
+    // max is exact, so the reduction order does not matter
+    for (int off = 16; off > 0; off >>= 1)
+      best = fmaxf(best, __shfl_down_sync(0xffffffffu, best, off));
+    if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = best;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float m = warp_max[0];
+      for (int w = 1; w < kWarps; ++w) m = fmaxf(m, warp_max[w]);
+      tile_max[(size_t)chunk * n_clusters + c] = m;
+    }
+    __syncthreads();
   }
 }
 
@@ -267,34 +417,140 @@ __global__ void gate_up_kernel(const T* __restrict__ x, const Bundles<T> w,
   }
 }
 
-// 5. y[b, d] = sum_n H[b, n] * Wd[row(n), d] over the K = G*kc*cs picked
-// neurons in order; a block owns kDownCols columns and every row, so each
-// output is written once and no partial sums cross blocks.
-template <typename T, int MODE>
-__global__ void down_kernel(const T* __restrict__ H, const Bundles<T> w,
-                            const int* __restrict__ idx, float* __restrict__ y,
-                            int B, int D, int R, int nc_g, int cs, int kc, int K) {
-  const int d = blockIdx.x * kDownCols + threadIdx.x;
-  if (d >= D) return;
-  const int ty = threadIdx.y;
-  float acc[kMaxBatch / kDownRowGroups];
+// A vector type of kBytes bytes, for one load of a run of elements.
+template <int kBytes> struct VecOf;
+template <> struct VecOf<4> { using type = unsigned int; };
+template <> struct VecOf<8> { using type = uint2; };
+template <> struct VecOf<16> { using type = uint4; };
+
+// N consecutive elements p[0, N), of which the first `valid` exist: one
+// N * sizeof(E)-byte load where all exist and p is aligned to that size,
+// else scalar loads of those that exist (the rest read as 0).
+template <typename E, int N>
+__device__ __forceinline__ void load_run(const E* p, int valid, E (&out)[N]) {
+  constexpr int kBytes = N * (int)sizeof(E);
+  using Vec = typename VecOf<kBytes>::type;
+  if (valid >= N && (reinterpret_cast<uintptr_t>(p) & (kBytes - 1)) == 0) {
+    const Vec v = *reinterpret_cast<const Vec*>(p);
+    memcpy(out, &v, kBytes);
+  } else {
+    memset(out, 0, kBytes);
 #pragma unroll
-  for (int q = 0; q < kMaxBatch / kDownRowGroups; ++q) acc[q] = 0.0f;
-  for (int n = 0; n < K; ++n) {
-    const int pick = n / cs;
-    const int i = n - pick * cs;
-    const int row = ((pick / kc) * nc_g + idx[pick]) * cs + i;
-    const float wv = load_w<T, MODE>(w, (size_t)row * R + (R - 1), D, d);
+    for (int e = 0; e < N; ++e)
+      if (e < valid) out[e] = p[e];
+  }
+}
+
+// The V weights (row_r, d), ..., (row_r, d + V - 1) as load_w reads each
+// one, sc being row_r's scale in the quant modes: fp values, or codes
+// (and outliers) in one load per array, dequantized element by element
+// with the same roundings. Columns at or past D read as 0.
+template <typename T, int MODE, int V>
+__device__ __forceinline__ void load_w_vec(const Bundles<T>& b, size_t row_r, float sc,
+                                           int D, int d, float (&out)[V]) {
+  const size_t i = row_r * D + d;
+  if constexpr (MODE == W_FP) {
+    T w[V];
+    load_run(b.w + i, D - d, w);
 #pragma unroll
-    for (int q = 0; q < kMaxBatch / kDownRowGroups; ++q) {
-      const int b = ty + q * kDownRowGroups;
-      if (b < B) acc[q] = fmaf(to_f(H[(size_t)b * K + n]), wv, acc[q]);
+    for (int e = 0; e < V; ++e) out[e] = to_f(w[e]);
+  } else {
+    int8_t q[V];
+    __half o[V];
+    load_run(b.q + i, D - d, q);
+    if constexpr (MODE == W_MIXED) load_run(b.o + i, D - d, o);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      float v = __fmul_rn(static_cast<float>(q[e]), sc);
+      if constexpr (MODE == W_MIXED) v = __fadd_rn(v, __half2float(o[e]));
+      out[e] = to_f(from_f<T>(v));
     }
   }
+}
+
+// 5. y[b, d] = sum_n H[b, n] * Wd[row(n), d] over the K = G*kc*cs picked
+// neurons. Block (ct, z) owns 64 output columns and 4 rows of H. Its
+// threads form kSlices = 256 / (64 / V) neuron slices (V = 16 bytes of T:
+// 32 slices in bf16) of 64 / V threads each; thread l of slice s owns
+// columns [l V, l V + V) of the tile, read as one vector per neuron, for
+// the neurons n = s mod kSlices. Per chunk of 256 neurons the block
+// stages their H columns and Wd row offsets in shared memory; each thread
+// then loads the weights (and scales) of up to 8 of its neurons, all of
+// them at K = 64, before it multiplies. The slices' partial sums are
+// added in slice order in shared memory, every row behind one barrier.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kThreads)
+down_kernel(const T* __restrict__ H, const Bundles<T> w, const int* __restrict__ idx,
+            float* __restrict__ y, int B, int D, int R, int nc_g, int cs, int kc, int K) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kLanes = kDownCols / V;        // threads of a slice
+  constexpr int kSlices = kThreads / kLanes;
+  __shared__ __align__(16) T Hs[kDownRows * kDownChunk];
+  __shared__ size_t row_r[kDownChunk];   // (neuron, row R - 1) of each neuron
+  __shared__ float red[kSlices * kDownRows * kDownCols];
+  const int slice = threadIdx.x / kLanes;
+  const int c0 = blockIdx.x * kDownCols;
+  const int d = c0 + (threadIdx.x % kLanes) * V;
+  for (int b0 = blockIdx.y * kDownRows; b0 < B; b0 += gridDim.y * kDownRows) {
+    const int nrows = min(kDownRows, B - b0);
+    float acc[kDownRows][V];
 #pragma unroll
-  for (int q = 0; q < kMaxBatch / kDownRowGroups; ++q) {
-    const int b = ty + q * kDownRowGroups;
-    if (b < B) y[(size_t)b * D + d] = acc[q];
+    for (int q = 0; q < kDownRows; ++q)
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[q][e] = 0.0f;
+    for (int k0 = 0; k0 < K; k0 += kDownChunk) {
+      const int kl = min(kDownChunk, K - k0);
+      stage_tile(Hs, kDownChunk, H + (size_t)b0 * K + k0, (size_t)K, nrows, kl);
+      for (int n = threadIdx.x; n < kl; n += kThreads) {
+        const int pick = (k0 + n) / cs;
+        const int i = k0 + n - pick * cs;
+        row_r[n] = ((size_t)((pick / kc) * nc_g + idx[pick]) * cs + i) * R + (R - 1);
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      if (d < D) {
+        for (int n0 = slice; n0 < kl; n0 += kSlices * kDownGroup) {
+          float wv[kDownGroup][V];
+#pragma unroll
+          for (int g = 0; g < kDownGroup; ++g) {
+            const int n = n0 + g * kSlices;
+            if (n < kl) {
+              const size_t rr = row_r[n];
+              load_w_vec<T, MODE, V>(w, rr, MODE == W_FP ? 0.0f : w.sc[rr], D, d, wv[g]);
+            }
+          }
+#pragma unroll
+          for (int g = 0; g < kDownGroup; ++g) {
+            const int n = n0 + g * kSlices;
+            if (n >= kl) break;
+#pragma unroll
+            for (int q = 0; q < kDownRows; ++q) {
+              if (q < nrows) {
+                const float hv = to_f(Hs[q * kDownChunk + n]);
+#pragma unroll
+                for (int e = 0; e < V; ++e) acc[q][e] = fmaf(hv, wv[g][e], acc[q][e]);
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+    float* mine = red + slice * kDownRows * kDownCols + (d - c0);
+#pragma unroll
+    for (int q = 0; q < kDownRows; ++q)
+#pragma unroll
+      for (int e = 0; e < V; ++e) mine[q * kDownCols + e] = acc[q][e];
+    __syncthreads();
+    for (int u = threadIdx.x; u < nrows * kDownCols; u += kThreads) {
+      const int q = u / kDownCols, c = u - q * kDownCols;
+      if (c0 + c < D) {
+        float v = red[u];
+        for (int t = 1; t < kSlices; ++t) v += red[t * kDownRows * kDownCols + u];
+        y[(size_t)(b0 + q) * D + c0 + c] = v;
+      }
+    }
+    __syncthreads();
   }
 }
 
@@ -310,13 +566,20 @@ int launch(const void* x, const Bundles<T>& wt, const void* A, const void* Bp, i
   const int n_chunks = (B + kScoreRows - 1) / kScoreRows;
   cudaError_t err;
 
-  hidden_kernel<T><<<B, 64, 0, stream>>>(xt, static_cast<const T*>(A), h, D, r);
+  const int n_split = (D + kHidD - 1) / kHidD;
+  hidden_kernel<T><<<dim3(n_split, (r + kHidCols - 1) / kHidCols,
+                          min((B + kHidRows - 1) / kHidRows, kMaxGridY)),
+                     kThreads, 0, stream>>>(xt, static_cast<const T*>(A), h, B, D, r);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  const int score_threads = (cs + 31) / 32 * 32;
-  const size_t score_smem = (kScoreRows * r + score_threads / 32) * sizeof(float);
-  score_kernel<T><<<dim3(n_clusters, n_chunks), score_threads, score_smem, stream>>>(
-      h, static_cast<const T*>(Bp), ldb, mask, scores, tile_max, B, r, Nc, cs, n_clusters);
+  const int stage_rows = min(r, max(1, kScoreStage / (cs * (int)sizeof(T))));
+  const size_t stage_bytes = (size_t)stage_rows * cs * sizeof(T);
+  const size_t sums_bytes = (size_t)(max(1, kThreads / cs) - 1) * kScoreRows * cs * 4;
+  const size_t score_smem = (kScoreRows * r + kWarps) * sizeof(float) +
+                            (stage_bytes > sums_bytes ? stage_bytes : sums_bytes);
+  score_kernel<T><<<dim3(n_clusters, min(n_chunks, kMaxGridY)), kThreads, score_smem,
+                    stream>>>(h, n_split, static_cast<const T*>(Bp), ldb, mask, scores,
+                              tile_max, B, r, Nc, cs, n_clusters, stage_rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   select_kernel<<<G, kSelectThreads, nc_g * sizeof(float), stream>>>(
@@ -328,8 +591,10 @@ int launch(const void* x, const Bundles<T>& wt, const void* A, const void* Bp, i
                                 kc, Nc, K, act, cats);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  down_kernel<T, MODE><<<(D + kDownCols - 1) / kDownCols, dim3(kDownCols, kDownRowGroups), 0,
-                   stream>>>(static_cast<const T*>(H), wt, idx, y, B, D, R, nc_g, cs, kc, K);
+  down_kernel<T, MODE><<<dim3((D + kDownCols - 1) / kDownCols,
+                              min((B + kDownRows - 1) / kDownRows, kMaxGridY)),
+                         kThreads, 0, stream>>>(static_cast<const T*>(H), wt, idx, y, B, D,
+                                                R, nc_g, cs, kc, K);
   return (int)cudaGetLastError();
 }
 
@@ -356,11 +621,13 @@ int dispatch(const void* x, const void* w, const void* wq, const void* wsc,
 extern "C" {
 
 // Launches the fused cold path on `stream`; returns the first nonzero
-// cudaError_t of the five launches, or 0. The caller checks the shapes
-// (B <= 64, cs <= 1024, r <= 1024, nc_g <= 12288), the dtypes and the
-// contiguity, and allocates every output and scratch buffer:
-//   y (B, D) f32, idx (G, kc) i32, h (B, r) f32, scores (B, G*nc_g*cs) f32,
-//   tile_max (ceil(B/8), G*nc_g) f32, H (B, G*kc*cs) in x's dtype.
+// cudaError_t of the five launches, or 0. Any B >= 1 and any D. The
+// caller checks the other shapes (cs <= 1024, r <= 1024, nc_g <= 12288),
+// the dtypes and the contiguity, and allocates every output and scratch
+// buffer:
+//   y (B, D) f32, idx (G, kc) i32, h (ceil(D/64), B, r) f32 (hidden's
+//   partials), scores (B, G*nc_g*cs) f32, tile_max (ceil(B/8), G*nc_g)
+//   f32, H (B, G*kc*cs) in x's dtype.
 // x (B, D), w (G*nc_g*cs, R, D), A (D, r) and Bp (r, >= G*nc_g*cs, row
 // stride ldb) share one dtype: is_bf16 = 1 for bfloat16, 0 for float32.
 // wmode 0 reads w; 1 reads int8 codes wq (w's shape) and fp32 scales wsc

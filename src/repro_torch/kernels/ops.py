@@ -21,7 +21,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # fused_cold_ffn's weight modes: fp bundles, int8 codes, int8 codes plus
 # an fp16 outlier sidecar (int4-mixed)
 _MODE_FP, _MODE_INT8, _MODE_MIXED = 0, 1, 2
-MAX_BATCH = 64
+# rows of A per block of fused_cold_ffn's hidden kernel (kHidD): h is
+# scratch of ceil(D / 64) fp32 partial products per (row, column)
+_HIDDEN_SPLIT = 64
 
 
 def _ptr(t) -> ctypes.c_void_p:
@@ -122,11 +124,11 @@ def fused_cold_ffn(x, wc, A, Bp, *, activation: str, mode: str = "relu",
         raise ValueError(f"shapes disagree: x {tuple(x.shape)}, wc "
                          f"{tuple(wc.shape)}, A {tuple(A.shape)}, Bp "
                          f"{tuple(Bp.shape)}")
-    if not (1 <= B <= MAX_BATCH and R in (2, 3) and 1 <= kc <= nc_g
-            and cs <= 1024 and 1 <= r <= 1024 and nc_g <= 12288):
-        raise ValueError(f"unsupported shape: B={B} (1..{MAX_BATCH}), "
-                         f"R={R} (2|3), kc={kc} (1..nc_g={nc_g}), cs={cs} "
-                         f"(<=1024), r={r} (<=1024), nc_g <= 12288")
+    if not (B >= 1 and R in (2, 3) and 1 <= kc <= nc_g and cs <= 1024
+            and 1 <= r <= 1024 and nc_g <= 12288):
+        raise ValueError(f"unsupported shape: B={B} (>= 1), R={R} (2|3), "
+                         f"kc={kc} (1..nc_g={nc_g}), cs={cs} (<=1024), "
+                         f"r={r} (<=1024), nc_g <= 12288")
     if not (x.is_contiguous() and wc.is_contiguous() and A.is_contiguous()
             and Bp.stride(1) == 1
             and all(t is None or t.is_contiguous() for t in (wq, wsc, wout))):
@@ -138,7 +140,7 @@ def fused_cold_ffn(x, wc, A, Bp, *, activation: str, mode: str = "relu",
     f32 = torch.float32
     y = torch.empty((B, D), dtype=f32, device=dev)
     idx = torch.empty((G, kc), dtype=torch.int32, device=dev)
-    h = torch.empty((B, r), dtype=f32, device=dev)
+    h = torch.empty((-(-D // _HIDDEN_SPLIT), B, r), dtype=f32, device=dev)
     scores = torch.empty((B, Nc), dtype=f32, device=dev)
     tile_max = torch.empty(((B + 7) // 8, G * nc_g), dtype=f32, device=dev)
     H = torch.empty((B, G * kc * cs), dtype=x.dtype, device=dev)

@@ -118,6 +118,63 @@ def test_fused_cold_ffn_quant_matches_plain(cuda, case, sd):
     _check(x, wc, A, Bp, None, act, mode, kc, **quantize_bundles(wc, sd))
 
 
+STORAGE = ["fp", "int8", "int4-mixed"]
+
+
+def _quant(wc, sd):
+    return {} if sd == "fp" else quantize_bundles(wc, sd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sd", STORAGE)
+@pytest.mark.parametrize("B", [65, 128, 300])
+def test_fused_cold_ffn_any_batch(cuda, B, sd):
+    """Past the 64 rows of the decode buckets, at the main path's shapes:
+    rows are tiled over the grid, so any B runs."""
+    x, wc, A, Bp = _inputs(B, 576, 64, 64, 1, 23, 3, torch.bfloat16, cuda,
+                           seed=B)
+    _check(x, wc, A, Bp, None, "silu", "cats", 1, **_quant(wc, sd))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sd", STORAGE)
+@pytest.mark.parametrize("D", [200, 203])
+def test_fused_cold_ffn_ragged_rows(cuda, D, sd):
+    """D = 200 (int8 rows of 200 bytes) and D = 203 (no row of x, A, the
+    codes or the sidecar starts 16-byte aligned): the kernels load the
+    ragged heads and tails of their vector runs one element at a time."""
+    x, wc, A, Bp = _inputs(16, D, 64, 64, 1, 23, 3, torch.bfloat16, cuda,
+                           seed=D)
+    _check(x, wc, A, Bp, None, "silu", "cats", 2, **_quant(wc, sd))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sd", STORAGE)
+def test_fused_cold_ffn_odd_column_offset(cuda, sd):
+    """Bp as the column slice [:, 65:] of a wider predictor: every row of
+    the slice starts 2 bytes past a 16-byte boundary."""
+    x, wc, A, Bfull = _inputs(8, 576, 64, 64, 1, 25, 3, torch.bfloat16,
+                              cuda, seed=65)
+    Bp = Bfull[:, 65:65 + 23 * 64]
+    wc = wc[:, :23].contiguous()
+    _check(x, wc, A, Bp, None, "silu", "cats", 2, **_quant(wc, sd))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sd", STORAGE)
+def test_fused_cold_ffn_repeats_bit_for_bit(cuda, sd):
+    """Two runs at B = 32 agree bit for bit: every sum runs in a fixed
+    order and nothing is added atomically."""
+    x, wc, A, Bp = _inputs(32, 576, 64, 64, 1, 23, 3, torch.bfloat16, cuda,
+                           seed=32)
+    q = _quant(wc, sd)
+    run = lambda: ops.fused_cold_ffn(x, wc, A, Bp, activation="silu",
+                                     mode="cats", kc=1, **q)
+    (y1, i1), (y2, i2) = run(), run()
+    assert torch.equal(y1, y2) and torch.equal(i1, i2)
+    _check(x, wc, A, Bp, None, "silu", "cats", 1, **q)
+
+
 # (B, D, N, R, cs, activation, dtype): the reference's sweep shapes plus
 # prefill-sized B and an N that 512 does not divide
 GATHER_CASES = [

@@ -80,6 +80,23 @@ def test_fused_cold_ffn_masked_rows(dtype, dead):
     np.testing.assert_allclose(yt, yj, **_tol(dtype))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dead", ["none", "some"])
+@pytest.mark.parametrize("B", [65, 96])
+def test_fused_cold_ffn_any_batch(B, dead, dtype):
+    """The reference's BlockSpec takes any B: past 64 rows the port's
+    fused_cold_ffn picks the same ids as the Pallas kernel and gives the
+    same y, with every row live or every third row dead."""
+    D, r, cs, G, nc_g, kc = 64, 16, 32, 1, 8, 2
+    x, wc, A, Bp = _inputs(B, D, r, cs, G, nc_g, 3, seed=B)
+    mask = None if dead == "none" else np.arange(B) % 3 != 1
+    (yj, ij), (yt, it) = _both(x, wc, A, Bp, "silu", "cats", kc, mask,
+                               dtype)
+    assert yt.shape == (B, D)
+    np.testing.assert_array_equal(it, ij)
+    np.testing.assert_allclose(yt, yj, **_tol(dtype))
+
+
 def test_fused_cold_ffn_constructed_tie():
     """The top cluster's predictor columns are copied into another
     cluster, so the two tie exactly for first place: both sides must
