@@ -12,13 +12,17 @@ without printing a result:
             (ids identical but for fp64-confirmed near ties; y within
             2e-4 in fp32, 5e-2 in bf16, the reference's tolerances), at
             the main path's shapes and past them: B up to 300, D = 200
-            and 203, Bp at an odd column offset, two runs bit-identical;
+            and 203, Bp at an odd column offset, exact ties between
+            clusters (duplicate Bp column blocks; ids identical), two
+            runs bit-identical;
    quant  — the same for its quant mode (int8 and int4-mixed codes; ids
             identical);
    times  — fused_cold_ffn at the main path's shapes, B 1/4/32, fp,
             int8 and int4-mixed: CUDA-event time per call, the same in
-            one CUDA graph, each of its five kernels' device time per
-            call (torch.profiler), the plain version, the card's bound;
+            one CUDA graph, each of its four kernels' device time per
+            call (torch.profiler, which must see exactly those four),
+            the plain version, the card's bound for the call and for
+            gate_up;
    gather — cluster_gather_ffn and dense_ffn against their plain
             versions (the reference's sweep, B up to 300, N = 1472 that
             512 does not divide), timed beside the port's torch.matmul
@@ -26,8 +30,10 @@ without printing a result:
 4. serve  — build_engine("smollm-135m", reduced=False, backend="pallas")
             serves a staggered stream of 4 greedy requests at full width
             (30 layers, bf16) through the kernel; the launch count must
-            be 30 per decode step; then the same at storage dtypes int8
-            and int4-mixed through the kernel's quant mode;
+            be 30 per decode step; a profile of decode steps gives the
+            device time and the fused_cold_ffn kernels per step; then
+            the same at storage dtypes int8 and int4-mixed through the
+            kernel's quant mode;
 5. parity — the same stream at full width in fp32 (4 layers) under the
             "pallas" and "jnp" backends: identical tokens, TokenStats
             and traces, at fp16 and at int4-mixed storage;
@@ -39,7 +45,9 @@ without printing a result:
 
 `--only` runs the card and build phases and then the named ones, and
 prints no summary and no result line (to time another tree's kernel:
-copy this file into its root and run `--only times` there). It imports
+copy this file into its root and run `--only times` there; a tree whose
+fused_cold_ffn launches other kernels than these four is timed with its
+own copy of this script). It imports
 the port only (never jax or the JAX package) and runs on the card only:
 without one it exits non-zero at once.
 """
@@ -96,28 +104,47 @@ def card_line() -> str:
 
 # ----------------------------------------------------------- phase 3 ----
 
-def kernel_inputs(B, D, r, cs, G, nc_g, R, dtype, seed, bp_offset=0):
+TIE_PERIOD = 3    # tied inputs: cluster c's Bp columns copy cluster c % 3's
+
+
+def tie_columns(bp, G, nc_g, cs):
+    """Copy, in every group, cluster c % TIE_PERIOD's Bp column block into
+    cluster c's (bp is (r, G*nc_g*cs) numpy): the copies' scores are the
+    same sums of the same products, so they tie exactly and the lowest id
+    must win each tie."""
+    blocks = bp.reshape(bp.shape[0], G, nc_g, cs)
+    src = np.arange(nc_g) % TIE_PERIOD
+    return blocks[:, :, src].reshape(bp.shape)
+
+
+def kernel_inputs(B, D, r, cs, G, nc_g, R, dtype, seed, bp_offset=0,
+                  ties=False):
     """x, wc, A and Bp; with `bp_offset` > 0, Bp is the column slice
     [:, bp_offset:] of a wider predictor (the engine's layout), so its
-    rows start where a 16-byte vector load would not."""
+    rows start where a 16-byte vector load would not; `ties` makes the
+    clusters tie exactly (tie_columns)."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
+    bp = rng.standard_normal((r, bp_offset + G * nc_g * cs)) / np.sqrt(r)
+    if ties:
+        bp[:, bp_offset:] = tie_columns(bp[:, bp_offset:], G, nc_g, cs)
     return (t(rng.standard_normal((B, D)) * 0.5),
             t(rng.standard_normal((G, nc_g, cs, R, D)) * 0.1),
             t(rng.standard_normal((D, r)) / np.sqrt(D)),
-            t(rng.standard_normal((r, bp_offset + G * nc_g * cs))
-              / np.sqrt(r))[:, bp_offset:])
+            t(bp)[:, bp_offset:])
 
 
 def check_case(name, B, dtype, mask_kind="live", seed=0, sd=None,
-               bp_offset=0, repeat=False, **over):
+               bp_offset=0, repeat=False, ties=False, **over):
     """One fused_cold_ffn case against its plain version; `sd` (int8 or
     int4-mixed) runs the quant mode on the codes of the same weights,
-    where the ids must be identical. `repeat` also runs the kernel a
-    second time and requires the same bits."""
+    where the ids must be identical, as they must with `ties` (exact
+    ties between clusters). `repeat` also runs the kernel a second time
+    and requires the same bits."""
     s = dict(MAIN, **over)
     x, wc, A, Bp = kernel_inputs(B, s["D"], s["r"], s["cs"], s["G"],
-                                 s["nc_g"], s["R"], dtype, seed, bp_offset)
+                                 s["nc_g"], s["R"], dtype, seed, bp_offset,
+                                 ties)
     quant = {} if sd is None else quantize_bundles(wc, sd)
     mask = torch.ones(B, dtype=torch.bool, device="cuda")
     if mask_kind == "some":
@@ -139,8 +166,12 @@ def check_case(name, B, dtype, mask_kind="live", seed=0, sd=None,
                                 cats=s["mode"] == "cats", kc=s["kc"],
                                 **quant)
     near, real = pick_disagreements(idx, ir, x, wc, A, Bp, mask.float())
-    if real or (sd is not None and near):
+    if real or ((sd is not None or ties) and near):
         raise AssertionError(f"{name}: picks differ: {real or near}")
+    if ties and s["kc"] > 1 and mask_kind != "none":
+        first = ir[:, :2].tolist()    # the top cluster and its lowest twin
+        if any(b - a != TIE_PERIOD for a, b in first):
+            raise AssertionError(f"{name}: no exact tie at the top: {first}")
     if mask_kind == "none" and idx.tolist() != [list(range(s["kc"]))] * s["G"]:
         raise AssertionError(f"{name}: all-dead batch picked {idx.tolist()}")
     err = float((y - yr).abs().max())
@@ -163,7 +194,7 @@ def edge_cases(sd=None):
     that must agree bit for bit."""
     bf16, tag = torch.bfloat16, "" if sd is None else f"{sd} "
     errs = [check_case(f"{tag}B={B} bf16", B, bf16, seed=B, sd=sd)
-            for B in (65, 128, 300)]
+            for B in (17, 65, 128, 300)]
     for D in (200, 203):
         errs.append(check_case(f"{tag}D={D} bf16", 16, bf16, D=D, kc=2,
                                seed=D, sd=sd))
@@ -171,6 +202,9 @@ def edge_cases(sd=None):
                            bp_offset=65, kc=2, seed=65, sd=sd))
     errs.append(check_case(f"{tag}repeat B=32", 32, bf16, seed=32, sd=sd,
                            repeat=True))
+    for B, G, kc in ((1, 1, 2), (32, 3, 2), (32, 1, 23), (1, 3, 23)):
+        errs.append(check_case(f"{tag}ties B={B} G={G} kc={kc}", B, bf16,
+                               seed=70 + B, sd=sd, ties=True, G=G, kc=kc))
     return errs
 
 
@@ -235,6 +269,24 @@ def bound(B, dtype, sd=None):
     return roofline(nbytes, ops_, dtype)
 
 
+def gate_up_bound(B, dtype, sd=None):
+    """Least time for gate_up with its selection at the main path's
+    shapes: the picked neurons' gate and up rows (fp weights, or codes
+    with their row scales and, for int4-mixed, the sidecar), x, the tile
+    maxima, the CATS scores of the picked columns, read once; H and the
+    ids written once; the gate and up products."""
+    s = MAIN
+    es = torch.empty((), dtype=dtype).element_size()
+    K = s["G"] * s["kc"] * s["cs"]
+    rows = 2 * K                               # gate and up of each neuron
+    w_bytes = {None: es, "int8": 1, "int4-mixed": 1 + 2}[sd] * rows * s["D"] \
+        + (0 if sd is None else 4 * rows)
+    n_chunks = -(-B // 8)
+    nbytes = (w_bytes + es * B * s["D"] + 4 * n_chunks * s["G"] * s["nc_g"]
+              + 4 * B * K + es * B * K + 4 * s["G"] * s["kc"])
+    return roofline(nbytes, 2 * B * rows * s["D"], dtype)
+
+
 def phase_kernel():
     print("== phase 3: fused_cold_ffn against its plain version")
     bf16, f32 = torch.bfloat16, torch.float32
@@ -277,18 +329,22 @@ def phase_quant():
                                seed=15, sd=sd))
         errs.append(check_case(f"{sd} dead rows", 8, bf16, mask_kind="some",
                                kc=4, seed=17, sd=sd))
+        errs.append(check_case(f"{sd} all rows dead", 8, bf16,
+                               mask_kind="none", kc=4, seed=18, sd=sd))
         errs += edge_cases(sd)
     return max(errs)
 
 
-SUBKERNELS = ("hidden_kernel", "score_kernel", "select_kernel",
-              "gate_up_kernel", "down_kernel")
+SUBKERNELS = ("hidden_kernel", "score_kernel", "gate_up_kernel",
+              "down_kernel")
+OWN = "(anonymous namespace)::"    # how the profiler names the port's kernels
 
 
 def subkernel_us(fn, iters=200):
-    """Device time per call (us) of each of fused_cold_ffn's five kernels,
+    """Device time per call (us) of each of fused_cold_ffn's four kernels,
     by torch.profiler over `iters` calls; None when the profiler saw no
-    device time."""
+    device time. Raises if it saw a kernel of the port's sources that is
+    not one of the four, or missed one of them."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -301,18 +357,25 @@ def subkernel_us(fn, iters=200):
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        for k in SUBKERNELS:
-            if f"::{k}" in e.key:
-                out[k] += e.self_device_time_total / iters
-    return out if any(out.values()) else None
+        ours = [k for k in SUBKERNELS if f"::{k}" in e.key]
+        if OWN in e.key and not ours:
+            raise AssertionError(f"fused_cold_ffn launched {e.key[:80]}")
+        for k in ours:
+            out[k] += e.self_device_time_total / iters
+    if not any(out.values()):
+        return None
+    if not all(out.values()):
+        raise AssertionError(f"the profiler missed kernels of the call: {out}")
+    return out
 
 
 def phase_times():
     """fused_cold_ffn at the main path's shapes, bf16, B 1/4/32, in the fp
     mode and both quant modes: time per call (CUDA events over 200
-    calls), the same calls in one CUDA graph, each of the five kernels'
+    calls), the same calls in one CUDA graph, each of the four kernels'
     device time per call (torch.profiler), the plain version's time and
-    the card's bound. Keys: (storage dtype, B)."""
+    the card's bound for the call and for gate_up. Keys: (storage dtype,
+    B)."""
     print("== phase 3 (times): fused_cold_ffn per call and per kernel")
     bf16, timings = torch.bfloat16, {}
     for sd in ("fp16",) + QUANT:
@@ -331,9 +394,11 @@ def phase_times():
             sub = subkernel_us(kern)
             plain_ms = cuda_time_ms(plain)
             b_ms, b_by = bound(B, bf16, None if sd == "fp16" else sd)
+            gu_ms, gu_by = gate_up_bound(B, bf16, None if sd == "fp16" else sd)
             timings[(sd, B)] = dict(ms=ms, graph_ms=dev_ms,
                                     plain_ms=plain_ms, bound_ms=b_ms,
-                                    bound_by=b_by, subkernel_us=sub)
+                                    bound_by=b_by, subkernel_us=sub,
+                                    gate_up_bound_ms=gu_ms)
             parts = "not measured (no CUDA events)" if sub is None else \
                 ", ".join(f"{k.removesuffix('_kernel')} {v:.2f}"
                           for k, v in sub.items()) + " us"
@@ -341,7 +406,8 @@ def phase_times():
                   f"({dev_ms * 1e3:.2f} us in a CUDA graph), plain "
                   f"{plain_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us "
                   f"({b_by})")
-            print(f"    per call: {parts}")
+            print(f"    per call: {parts}; gate_up's bound "
+                  f"{gu_ms * 1e3:.3f} us ({gu_by})")
     return timings
 
 
@@ -515,13 +581,22 @@ def profile_steps(engine, vocab, batch=4, n_new=5):
           f"{wall * 1e3 / steps:.2f} ms/step")
     if busy == 0.0:
         print("  profile: device time not measured (no CUDA events)")
-        return
-    print(f"  profile: device busy {busy / steps:.3f} ms/step "
+        return None
+    cold = [e for e in dev if any(f"::{k}" in e.key for k in SUBKERNELS)]
+    out = dict(device_ms_per_step=busy / steps,
+               kernels_per_step=sum(e.count for e in dev) / steps,
+               cold_kernels_per_step=sum(e.count for e in cold) / steps,
+               cold_ms_per_step=sum(e.self_device_time_total
+                                    for e in cold) / 1e3 / steps)
+    print(f"  profile: device busy {out['device_ms_per_step']:.3f} ms/step "
           f"({busy / (wall * 1e3):.1%} of wall), "
-          f"{sum(e.count for e in dev) / steps:.0f} kernels/step")
+          f"{out['kernels_per_step']:.0f} kernels/step, of them "
+          f"{out['cold_kernels_per_step']:.0f} fused_cold_ffn kernels "
+          f"({out['cold_ms_per_step']:.3f} ms/step)")
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"    {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
               f"{e.count / steps:6.0f}/step  {e.key[:70]}")
+    return out
 
 
 def phase_serve(sd="fp16"):
@@ -548,7 +623,7 @@ def phase_serve(sd="fp16"):
     peak = torch.cuda.max_memory_allocated()
     hist = list(engine.sched.batch_history)
     plane_ms = float(np.mean(plane) * 1e3)
-    profile_steps(engine, cfg.vocab_size)
+    prof = profile_steps(engine, cfg.vocab_size)
     engine.close()
     steps = len(stats)
     print(f"  {cfg.num_layers} layers, d_model {cfg.d_model}, "
@@ -575,7 +650,7 @@ def phase_serve(sd="fp16"):
     return dict(launches=launches, steps=steps, wall_ms_mean=float(w.mean()),
                 plane_ms=plane_ms,
                 wall_ms_median=float(np.median(w)), peak_bytes=peak,
-                batch_history=hist)
+                batch_history=hist, profile=prof)
 
 
 # ----------------------------------------------------------- phase 5 ----
@@ -737,7 +812,7 @@ def main(argv=None):
         "subkernel_us": t1["subkernel_us"],
         "by_batch": {str(b): v for (sd, b), v in times.items()
                      if sd == "fp16"},
-        "decode_steps": serve["steps"]}, {
+        "decode_steps": serve["steps"], "serve_profile": serve["profile"]}, {
         "name": "fused_cold_ffn (quant mode)", "route": "cuda",
         "source": src + "fused_cold_ffn.cu",
         "replaces": "src/repro/kernels/cluster_gather_ffn.py:148",
@@ -751,7 +826,8 @@ def main(argv=None):
         "by_dtype_batch": {f"{sd} B={b}": v
                            for (sd, b), v in times.items() if sd != "fp16"},
         "launches_by_dtype": {sd: v["launches"] for sd, v in q_serve.items()},
-        "decode_steps": {sd: v["steps"] for sd, v in q_serve.items()}}]
+        "decode_steps": {sd: v["steps"] for sd, v in q_serve.items()},
+        "serve_profile": {sd: v["profile"] for sd, v in q_serve.items()}}]
     for name, line, shape_g in (
             ("cluster_gather_ffn", "src/repro/kernels/cluster_gather_ffn.py:80",
              "B=1 D=576 N=1536 R=3 cs=64 12 of 24 clusters bf16"),

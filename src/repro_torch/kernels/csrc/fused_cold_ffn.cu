@@ -17,9 +17,9 @@
 //   w = cast_T(q * sc + o)      int4-mixed
 // with the product and the sum each rounded to fp32 (__fmul_rn,
 // __fadd_rn: nvcc would contract them into one FMA and round once):
-// gate_up reads each weight through load_w, down a run of 16 bytes of T
-// through load_w_vec, with the same roundings. The selection kernels
-// read only the predictor and do not change.
+// gate_up and down read a run of 16 bytes of T through load_w_vec, which
+// dequantizes element by element with those roundings. The score kernels
+// and the selection read only the predictor and do not change.
 //
 // What bounds it on this card. By bytes, little: at the main path's
 // shapes (D = 576, r = 64, cs = 64, 23 cold clusters, R = 3, kc = 1,
@@ -36,7 +36,7 @@
 //
 // Design. The TPU grid (groups,) runs in order on one core, and
 // single-device plans have G = 1, so one block per group would put the
-// whole cold path on one SM. Here the call is five short kernels on the
+// whole cold path on one SM. Here the call is four short kernels on the
 // caller's stream, each spread over many blocks:
 //   1. hidden   h partials, one per 64 rows  grid (D / 64, r / 64, B / 16)
 //               of A: A's slice and x's
@@ -46,23 +46,29 @@
 //               Bp tile (r split over the
 //               threads cs leaves over),
 //               masked tile maxima
-//   3. select   cluster max over row chunks  grid (G)
-//               and kc ordered picks
-//   4. gate_up  H = cast(act(x.Wg)*(x.Wu)    grid (G*kc picks, neuron tiles)
-//               * cats)                      one warp per neuron
-//   5. down     y = H.Wd: H and the picked   grid (D / 64, B / 4)
+//   3. gate_up  each block selects its pick  grid (G*kc picks, cs neurons,
+//               (cluster max over row        B / 4), one neuron a block,
+//               chunks, k + 1 ordered        D split over its 4 warps
+//               passes) while x's rows are
+//               staged, then H = cast(act(
+//               x.Wg)*(x.Wu)*cats) from
+//               register weight rows
+//   4. down     y = H.Wd: H and the picked   grid (D / 64, B / 4)
 //               rows' offsets staged, each
 //               thread 16 bytes of columns,
 //               neurons split over slices
-// Any B: rows are tiled over the grid (row tiles past 65535 loop inside
-// the block). Any D, row stride or pointer: a vector run that is not
-// 16-byte aligned, or runs past the row's end, is loaded one element at
-// a time inside the kernel. No bundle is staged whole in shared memory
-// (one bf16 bundle is 221 KB at the main shapes). Every sum runs in a
-// fixed order (sequential loops, then the D splits, score's thread groups
-// or down's neuron slices added in order, a fixed shuffle tree; no
-// atomics), so runs repeat bit for bit. Scratch
-// (h partials, scores, tile maxima, H) is allocated by the caller.
+// The selection is repeated by every gate_up block, in registers and
+// shared memory only: no atomics, no counter and no state across calls,
+// so a CUDA graph replays a call unchanged. Any B: rows are tiled over
+// the grid (row tiles past 65535 loop inside the block). Any D, row
+// stride or pointer: a vector run that is not 16-byte aligned, or runs
+// past the row's end, is loaded one element at a time inside the kernel.
+// No bundle is staged whole in shared memory (one bf16 bundle is 221 KB at
+// the main shapes). Every sum runs in a fixed order (sequential loops,
+// then the D splits, score's thread groups or down's neuron slices added
+// in order, a fixed shuffle tree; no atomics), so runs repeat bit for
+// bit. Scratch (h partials, scores, tile maxima, H) is allocated by the
+// caller.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -83,12 +89,13 @@ constexpr int kHidRows = 16;    // rows of x per hidden block
 constexpr int kScoreRows = 8;   // rows of x per score block
 constexpr int kScoreCols = 4;   // columns per score thread: cs <= 4 * kThreads
 constexpr int kScoreStage = 12288;  // bytes of Bp a score block stages at once
-constexpr int kGateWarps = 4;   // neurons per gate_up block
+constexpr int kGateThreads = 128;  // threads of a gate_up block: one neuron, D split
+constexpr int kGateWarps = kGateThreads / 32;
+constexpr int kGateRows = 4;    // rows of x per gate_up block
 constexpr int kDownRows = 4;    // rows of H per down block
 constexpr int kDownCols = 64;   // output columns per down block
 constexpr int kDownChunk = 256; // neurons whose H columns a down block stages at once
 constexpr int kDownGroup = 8;   // neurons whose weights a thread loads before it multiplies
-constexpr int kSelectThreads = 256;
 
 enum { ACT_SILU = 0, ACT_RELU2 = 1, ACT_GELU_TANH = 2 };
 enum { W_FP = 0, W_INT8 = 1, W_MIXED = 2 };  // weight modes
@@ -114,22 +121,6 @@ struct Bundles {
   const float* sc;
   const __half* o;
 };
-
-// Weight (row, r, d) of the (N, R, D) bundles as the dots read it: the fp
-// value, or the dequantized one cast to T, exactly as the reference's
-// f32 multiply, f32 add and cast to x.dtype.
-template <typename T, int MODE>
-__device__ __forceinline__ float load_w(const Bundles<T>& b, size_t row_r, int D,
-                                        int d) {
-  const size_t i = row_r * D + d;
-  if constexpr (MODE == W_FP) {
-    return to_f(b.w[i]);
-  } else {
-    float v = __fmul_rn(static_cast<float>(b.q[i]), b.sc[row_r]);
-    if constexpr (MODE == W_MIXED) v = __fadd_rn(v, __half2float(b.o[i]));
-    return to_f(from_f<T>(v));
-  }
-}
 
 __device__ __forceinline__ float activate(float g, int act) {
   if (act == ACT_SILU) return g * (1.0f / (1.0f + expf(-g)));
@@ -337,84 +328,50 @@ __device__ __forceinline__ void argmax_combine(float& bv, int& bi, float ov, int
   }
 }
 
-// 3. One block per group: cluster scores = max over row chunks, then kc
-// picks, each the first maximum, knocked down to -inf once taken. The
-// masked value -FLT_MAX sits above -inf, so an all-masked batch picks
-// [0, kc) as jax.lax.top_k does.
-__global__ void select_kernel(const float* __restrict__ tile_max, int* __restrict__ idx,
-                              int n_chunks, int n_clusters, int nc_g, int kc) {
-  extern __shared__ float cscore[];    // nc_g
-  __shared__ float wv[kSelectThreads / 32];
-  __shared__ int wi[kSelectThreads / 32];
-  const int g = blockIdx.x;
-  for (int c = threadIdx.x; c < nc_g; c += blockDim.x) {
-    float m = tile_max[g * nc_g + c];
-    for (int q = 1; q < n_chunks; ++q)
-      m = fmaxf(m, tile_max[(size_t)q * n_clusters + g * nc_g + c]);
+// Pick k of group g, made by the whole block (the reference's loop,
+// cluster_gather_ffn.py:178-186): group g's cluster scores, each the max of
+// its tile_max entries over the row chunks, go into cscore (shared, nc_g
+// floats; entry c is written and read by thread c mod blockDim.x only),
+// then argmax-and-knockout passes 0..k: each takes the first maximum
+// (argmax_combine, over a butterfly in each warp, then over the warps in
+// order, so every thread ends with the same pair), and the thread that
+// owns it knocks it down to -inf. The masked value -FLT_MAX sits above
+// -inf, so an all-masked batch picks [0, kc) as jax.lax.top_k does. wv and
+// wi (shared, 2 x warps) hold each pass's warp results, alternating so
+// that one barrier a pass suffices. Returns pass k's cluster in every
+// thread.
+__device__ __forceinline__ int select_cluster(const float* __restrict__ tile_max,
+                                              float* cscore, float (*wv)[kGateWarps],
+                                              int (*wi)[kGateWarps], int n_chunks,
+                                              int n_clusters, int g, int nc_g, int k) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  for (int c = t; c < nc_g; c += blockDim.x) {
+    const float* p = tile_max + (size_t)g * nc_g + c;
+    float m = p[0];
+    for (int q = 1; q < n_chunks; ++q) m = fmaxf(m, p[(size_t)q * n_clusters]);
     cscore[c] = m;
   }
-  __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int k = 0; k < kc; ++k) {
+  int bi = 0;
+  for (int pass = 0; pass <= k; ++pass) {
     float bv = -INFINITY;
-    int bi = INT_MAX;
-    for (int c = threadIdx.x; c < nc_g; c += blockDim.x)
-      argmax_combine(bv, bi, cscore[c], c);
+    bi = INT_MAX;
+    for (int c = t; c < nc_g; c += blockDim.x) argmax_combine(bv, bi, cscore[c], c);
     for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
       argmax_combine(bv, bi, ov, oi);
     }
     if (lane == 0) {
-      wv[warp] = bv;
-      wi[warp] = bi;
+      wv[pass & 1][warp] = bv;
+      wi[pass & 1][warp] = bi;
     }
     __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int w = 1; w < (int)(blockDim.x >> 5); ++w) argmax_combine(bv, bi, wv[w], wi[w]);
-      idx[g * kc + k] = bi;
-      cscore[bi] = -INFINITY;
-    }
-    __syncthreads();
+    bv = wv[pass & 1][0];
+    bi = wi[pass & 1][0];
+    for (int w = 1; w < kGateWarps; ++w) argmax_combine(bv, bi, wv[pass & 1][w], wi[pass & 1][w]);
+    if (bi % (int)blockDim.x == t) cscore[bi] = -INFINITY;
   }
-}
-
-// 4. One warp per neuron of a picked cluster: gate (and up) dots over D for
-// every row, lanes strided over D and summed by a fixed shuffle tree.
-// H[b, pick * cs + i] = cast_T(act(g) * u * (score > 0 under CATS)).
-template <typename T, int MODE>
-__global__ void gate_up_kernel(const T* __restrict__ x, const Bundles<T> w,
-                               const int* __restrict__ idx,
-                               const float* __restrict__ scores, T* __restrict__ H,
-                               int B, int D, int R, int nc_g, int cs, int kc, int Nc,
-                               int K, int act, int cats) {
-  const int pick = blockIdx.x;         // g * kc + k
-  const int i = blockIdx.y * kGateWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (i >= cs) return;
-  const int g = pick / kc;
-  const int col = (g * nc_g + idx[pick]) * cs + i;  // cold neuron = score column
-  const size_t rg = (size_t)col * R;   // (neuron, row) of the gate row
-  const bool gated = R == 3;
-  for (int b = 0; b < B; ++b) {
-    const T* xb = x + (size_t)b * D;
-    float ag = 0.0f, au = 0.0f;
-    for (int d = lane; d < D; d += 32) {
-      const float xv = to_f(xb[d]);
-      ag = fmaf(xv, load_w<T, MODE>(w, rg, D, d), ag);
-      if (gated) au = fmaf(xv, load_w<T, MODE>(w, rg + 1, D, d), au);
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      ag += __shfl_down_sync(0xffffffffu, ag, off);
-      au += __shfl_down_sync(0xffffffffu, au, off);
-    }
-    if (lane == 0) {
-      float hv = activate(ag, act);
-      if (gated) hv *= au;
-      if (cats) hv *= scores[(size_t)b * Nc + col] > 0.0f ? 1.0f : 0.0f;
-      H[(size_t)b * K + pick * cs + i] = from_f<T>(hv);
-    }
-  }
+  return bi;
 }
 
 // A vector type of kBytes bytes, for one load of a run of elements.
@@ -441,10 +398,11 @@ __device__ __forceinline__ void load_run(const E* p, int valid, E (&out)[N]) {
   }
 }
 
-// The V weights (row_r, d), ..., (row_r, d + V - 1) as load_w reads each
-// one, sc being row_r's scale in the quant modes: fp values, or codes
-// (and outliers) in one load per array, dequantized element by element
-// with the same roundings. Columns at or past D read as 0.
+// The V weights (row_r, d), ..., (row_r, d + V - 1) of the (N, R, D)
+// bundles as the dots read them, sc being row_r's scale in the quant
+// modes: fp values, or codes (and outliers) in one load per array,
+// dequantized element by element exactly as the reference's f32 multiply,
+// f32 add and cast to x.dtype. Columns at or past D read as 0.
 template <typename T, int MODE, int V>
 __device__ __forceinline__ void load_w_vec(const Bundles<T>& b, size_t row_r, float sc,
                                            int D, int d, float (&out)[V]) {
@@ -468,7 +426,169 @@ __device__ __forceinline__ void load_w_vec(const Bundles<T>& b, size_t row_r, fl
   }
 }
 
-// 5. y[b, d] = sum_n H[b, n] * Wd[row(n), d] over the K = G*kc*cs picked
+// A D chunk of gate_up: each of its kGateThreads threads holds S runs of
+// V elements (16 bytes each) of a weight row, 8 elements in all, so a
+// chunk is 1024 columns in either dtype (D = 576 is one chunk).
+template <typename T> struct GateChunk {
+  static constexpr int V = 16 / sizeof(T);
+  static constexpr int S = 8 / V;
+  static constexpr int cols = kGateThreads * S * V;
+};
+
+// Stages rows x cols of x (row stride D) into xs (row stride ldx): each
+// thread copies only its own runs, the columns [(128 s + t) V, + V) it
+// later reads, with a 16-byte cp.async where the run is whole and aligned,
+// else element by element with zeros past cols. So x needs no barrier:
+// the thread waits for its own copies (cp_async_wait_all). stage_tile's
+// loop over a block-wide slot index, with a division a slot and a
+// barrier, cost 0.3-0.5 us more at B <= 4 on the H100.
+template <typename T, int S>
+__device__ __forceinline__ void stage_own(T* __restrict__ xs, int ldx, const T* __restrict__ x,
+                                          int D, int rows, int cols) {
+  constexpr int V = 16 / sizeof(T);
+  for (int q = 0; q < rows; ++q) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int cc = (s * kGateThreads + threadIdx.x) * V;
+      if (cc < cols) {
+        const T* src = x + (size_t)q * D + cc;
+        T* dst = xs + q * ldx + cc;
+        if (cols - cc >= V && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+          cp_async16(dst, src);
+        } else {
+#pragma unroll
+          for (int e = 0; e < V; ++e) dst[e] = e < cols - cc ? src[e] : from_f<T>(0.0f);
+        }
+      }
+    }
+  }
+}
+
+// 3. gate_up, with the selection. Block (pick, i, z) owns pick g * kc + k,
+// neuron i of the picked cluster and rows [4 z, 4 z + 4) of x (row tiles
+// past the grid loop inside the block):
+//   H[b, pick * cs + i] = cast_T(act(x.Wg) * (x.Wu) * (score > 0 under CATS)).
+// What bounds it: latency. Its bytes are the picked rows (2 x 64 x 576 x
+// 2 B = 147 KB over the 64 neurons at the main shapes), x, the scores it
+// reads and H, 0.05 us at the card's memory rate; its chain is tile_max ->
+// argmax -> weight rows -> dots -> H, and at decode batch each block has a
+// few hundred instructions to run one after the other. So each thread
+// issues its runs of x's row tile (stage_own: cp.async into shared memory)
+// first and the block selects (select_cluster) while they are in flight;
+// once the pick is known each thread loads its runs of
+// the neuron's gate and up rows into registers (16-byte vectors, all in
+// one round, each weight read and dequantized by load_w_vec once per
+// block), beside the rows' CATS scores. D is split over the block's 4
+// warps: thread t holds columns [(128 s + t) V, (128 s + t) V + V), s < S,
+// of each 1024-column chunk (GateChunk), so a thread does 8 columns of a
+// row. Each row's two partial dots run from shared x and the register
+// weights, in order over chunks, runs and elements (all 4 rows without a
+// branch, so their chains interleave: at B = 1 that costs less than one row
+// behind a branch), then over a fixed
+// butterfly in each warp; the warps' partials are added in warp order in
+// shared memory (a warp with no columns adds an exact 0), and thread q
+// finishes row q. Blocks (pick, 0, 0) write idx[pick], which down reads
+// in the next launch.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kGateThreads)
+gate_up_kernel(const T* __restrict__ x, const Bundles<T> w,
+               const float* __restrict__ tile_max, int* __restrict__ idx,
+               const float* __restrict__ scores, T* __restrict__ H, int B, int D, int R,
+               int nc_g, int cs, int kc, int Nc, int K, int n_chunks, int n_clusters,
+               int act, int cats) {
+  constexpr int V = GateChunk<T>::V, S = GateChunk<T>::S, DC = GateChunk<T>::cols;
+  extern __shared__ __align__(16) unsigned char gate_smem[];
+  T* xs = reinterpret_cast<T*>(gate_smem);                        // kGateRows x DC
+  float* cscore = reinterpret_cast<float*>(xs + kGateRows * DC);  // nc_g
+  __shared__ float wv[2][kGateWarps];
+  __shared__ int wi[2][kGateWarps];
+  __shared__ float red[kGateWarps][kGateRows][2];   // warp partials of each row's dots
+  const int pick = blockIdx.x, i = blockIdx.y, t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int g = pick / kc;
+  const int first = blockIdx.z * kGateRows;
+  const bool one_chunk = D <= DC, gated = R == 3;
+  stage_own<T, S>(xs, DC, x + (size_t)first * D, D, min(kGateRows, B - first), min(DC, D));
+  const int c = select_cluster(tile_max, cscore, wv, wi, n_chunks, n_clusters, g, nc_g,
+                               pick - g * kc);
+  if (blockIdx.y == 0 && blockIdx.z == 0 && t == 0) idx[pick] = c;
+  const int col = (g * nc_g + c) * cs + i;   // cold neuron = score column
+  const size_t rg = (size_t)col * R;        // (neuron, row) of the gate row
+  const float sg = MODE == W_FP ? 0.0f : w.sc[rg];
+  const float su = MODE == W_FP || !gated ? 0.0f : w.sc[rg + 1];
+  float wg[S][V], wu[S][V];
+  for (int b0 = first; b0 < B; b0 += gridDim.z * kGateRows) {
+    if (b0 != first) __syncthreads();      // the last tile's red is read
+    const int nrows = min(kGateRows, B - b0);
+    const float sv = cats && t < nrows ? scores[(size_t)(b0 + t) * Nc + col] : 1.0f;
+    float ag[kGateRows], au[kGateRows];
+#pragma unroll
+    for (int q = 0; q < kGateRows; ++q) ag[q] = au[q] = 0.0f;
+    for (int d0 = 0; d0 < D; d0 += DC) {
+      const int dl = min(DC, D - d0);
+      if (b0 != first || d0 != 0) stage_own<T, S>(xs, DC, x + (size_t)b0 * D + d0, D, nrows, dl);
+      if (!one_chunk || b0 == first) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const int cc = (s * kGateThreads + t) * V;
+          if (cc < dl) {
+            load_w_vec<T, MODE, V>(w, rg, sg, D, d0 + cc, wg[s]);
+            if (gated) load_w_vec<T, MODE, V>(w, rg + 1, su, D, d0 + cc, wu[s]);
+          }
+        }
+      }
+      cp_async_wait_all();                  // this thread's own runs of x
+      // every row of the tile, so the rows' chains interleave; a row past
+      // B re-reads the last live one and is never stored
+#pragma unroll
+      for (int q = 0; q < kGateRows; ++q) {
+        const T* xq = xs + min(q, nrows - 1) * DC;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const int cc = (s * kGateThreads + t) * V;
+          if (cc < dl) {
+            const uint4 v = *reinterpret_cast<const uint4*>(xq + cc);
+            T xt[V];
+            memcpy(xt, &v, sizeof(v));
+#pragma unroll
+            for (int e = 0; e < V; ++e) {
+              const float xv = to_f(xt[e]);
+              ag[q] = fmaf(xv, wg[s][e], ag[q]);
+              if (gated) au[q] = fmaf(xv, wu[s][e], au[q]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kGateRows; ++q) {
+      float a = ag[q], u = au[q];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, off);
+        if (gated) u += __shfl_xor_sync(0xffffffffu, u, off);
+      }
+      if (lane == 0) {
+        red[warp][q][0] = a;
+        red[warp][q][1] = u;
+      }
+    }
+    __syncthreads();
+    if (t < nrows) {
+      float a = red[0][t][0], u = red[0][t][1];
+      for (int v = 1; v < kGateWarps; ++v) {
+        a += red[v][t][0];
+        u += red[v][t][1];
+      }
+      float hv = activate(a, act);
+      if (gated) hv *= u;
+      if (cats) hv *= sv > 0.0f ? 1.0f : 0.0f;
+      H[(size_t)(b0 + t) * K + (size_t)pick * cs + i] = from_f<T>(hv);
+    }
+  }
+}
+
+// 4. y[b, d] = sum_n H[b, n] * Wd[row(n), d] over the K = G*kc*cs picked
 // neurons. Block (ct, z) owns 64 output columns and 4 rows of H. Its
 // threads form kSlices = 256 / (64 / V) neuron slices (V = 16 bytes of T:
 // 32 slices in bf16) of 64 / V threads each; thread l of slice s owns
@@ -582,13 +702,18 @@ int launch(const void* x, const Bundles<T>& wt, const void* A, const void* Bp, i
                               tile_max, B, r, Nc, cs, n_clusters, stage_rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  select_kernel<<<G, kSelectThreads, nc_g * sizeof(float), stream>>>(
-      tile_max, idx, n_chunks, n_clusters, nc_g, kc);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  gate_up_kernel<T, MODE><<<dim3(G * kc, (cs + kGateWarps - 1) / kGateWarps), 32 * kGateWarps, 0,
-                      stream>>>(xt, wt, idx, scores, static_cast<T*>(H), B, D, R, nc_g, cs,
-                                kc, Nc, K, act, cats);
+  const size_t gate_smem = (size_t)kGateRows * GateChunk<T>::cols * sizeof(T) +
+                           (size_t)nc_g * sizeof(float);
+  if (gate_smem + 1024 > 48 * 1024 &&    // dynamic plus the kernel's static 320 bytes
+      (err = cudaFuncSetAttribute(gate_up_kernel<T, MODE>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)gate_smem)) != cudaSuccess)
+    return (int)err;
+  gate_up_kernel<T, MODE><<<dim3(G * kc, cs, min((B + kGateRows - 1) / kGateRows, kMaxGridY)),
+                            kGateThreads, gate_smem, stream>>>(xt, wt, tile_max, idx, scores,
+                                                     static_cast<T*>(H), B, D, R, nc_g, cs,
+                                                     kc, Nc, K, n_chunks, n_clusters, act,
+                                                     cats);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   down_kernel<T, MODE><<<dim3((D + kDownCols - 1) / kDownCols,
@@ -621,7 +746,7 @@ int dispatch(const void* x, const void* w, const void* wq, const void* wsc,
 extern "C" {
 
 // Launches the fused cold path on `stream`; returns the first nonzero
-// cudaError_t of the five launches, or 0. Any B >= 1 and any D. The
+// cudaError_t of the four launches, or 0. Any B >= 1 and any D. The
 // caller checks the other shapes (cs <= 1024, r <= 1024, nc_g <= 12288),
 // the dtypes and the contiguity, and allocates every output and scratch
 // buffer:

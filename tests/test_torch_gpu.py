@@ -175,6 +175,82 @@ def test_fused_cold_ffn_repeats_bit_for_bit(cuda, sd):
     _check(x, wc, A, Bp, None, "silu", "cats", 1, **q)
 
 
+def _tied(Bp, G, nc_g, cs, period=3):
+    """Bp with cluster c's column block a copy of cluster c % period's in
+    every group: the copies' scores tie exactly."""
+    blocks = Bp.reshape(Bp.shape[0], G, nc_g, cs)
+    src = torch.arange(nc_g, device=Bp.device) % period
+    return blocks[:, :, src].reshape(Bp.shape).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sd", STORAGE)
+@pytest.mark.parametrize("B", [1, 32])
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("kc", [1, 2, 23])
+def test_fused_cold_ffn_exact_ties(cuda, kc, G, B, sd):
+    """Clusters that tie exactly (duplicate Bp column blocks): the
+    selection, now in gate_up's prologue, takes the lowest id of each tie
+    first, so the ids equal select_clusters's (the plain version's),
+    kc = nc_g included."""
+    nc_g, cs = 23, 64
+    x, wc, A, Bp = _inputs(B, 576, 64, cs, G, nc_g, 3, torch.bfloat16, cuda,
+                           seed=40 + B + G)
+    Bp = _tied(Bp, G, nc_g, cs)
+    q = _quant(wc, sd)
+    y, idx = ops.fused_cold_ffn(x, wc, A, Bp, activation="silu",
+                                mode="cats", kc=kc, **q)
+    m = torch.ones(B, device=cuda)
+    yr, ir = fused_cold_ffn_ref(x, wc, A, Bp, m, activation="silu",
+                                cats=True, kc=kc, **q)
+    assert torch.equal(idx, ir)
+    if kc > 1:
+        assert all(b - a == 3 for a, b in ir[:, :2].tolist())  # a real tie
+    torch.testing.assert_close(y, yr, atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sd", STORAGE)
+@pytest.mark.parametrize("B", [1, 4, 5, 7, 8, 9, 15, 16, 17, 33])
+def test_fused_cold_ffn_gate_up_row_tiles(cuda, B, sd):
+    """gate_up takes 4 rows of x a block: B around each tile edge, at the
+    main path's shapes."""
+    x, wc, A, Bp = _inputs(B, 576, 64, 64, 1, 23, 3, torch.bfloat16, cuda,
+                           seed=80 + B)
+    _check(x, wc, A, Bp, None, "silu", "cats", 1, **_quant(wc, sd))
+
+
+@pytest.mark.gpu
+def test_fused_cold_ffn_row_tiles_past_the_grid(cuda):
+    """B = 4 * 65535 + 5: gate_up's row tiles (4 rows each) and down's
+    pass the grid's 65535 and loop inside the block. In relu mode: over
+    16.8M (row, neuron) pairs some fp32 score sits so close to 0 that the
+    kernel's and cuBLAS's summation orders give it opposite signs, and
+    CATS would then keep the neuron on one side only."""
+    B = 4 * 65535 + 5
+    x, wc, A, Bp = _inputs(B, 576, 64, 64, 1, 23, 3, torch.bfloat16, cuda,
+                           seed=7)
+    _check(x, wc, A, Bp, None, "silu", "relu", 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sd", STORAGE)
+@pytest.mark.parametrize("D,dtype", [(200, torch.bfloat16),
+                                     (203, torch.bfloat16),
+                                     (1000, torch.bfloat16),
+                                     (203, torch.float32),
+                                     (700, torch.float32)],
+                         ids=["200-bf16", "203-bf16", "1000-bf16", "203-fp32",
+                              "700-fp32"])
+def test_fused_cold_ffn_gate_up_row_runs(cuda, D, dtype, sd):
+    """gate_up's 16-byte weight runs (codes and sidecar in the quant
+    modes) on rows that are not 16-byte multiples (200 int8 codes, 203
+    of anything), and rows wider than one D chunk (768 columns in bf16,
+    640 in fp32), over two row tiles and two groups."""
+    x, wc, A, Bp = _inputs(17, D, 32, 32, 2, 5, 3, dtype, cuda, seed=D)
+    _check(x, wc, A, Bp, None, "silu", "cats", 2, **_quant(wc, sd))
+
+
 # (B, D, N, R, cs, activation, dtype): the reference's sweep shapes plus
 # prefill-sized B and an N that 512 does not divide
 GATHER_CASES = [

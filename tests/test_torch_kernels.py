@@ -126,6 +126,49 @@ def test_plain_chain_top_k_ties_match_lax():
         np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
 
 
+_FMIN = np.finfo(np.float32).min
+# (G, nc_g) cluster scores heavy with ties: a tie at the top, a group
+# that is mostly -FLT_MAX (a masked row's value), and a group that ties
+# throughout
+TIED_CLUSTER_SCORES = np.array(
+    [[1.0, 2.0, 2.0, _FMIN, 2.0, 1.0],
+     [_FMIN, _FMIN, 0.5, _FMIN, 0.5, _FMIN],
+     [-3.0, -3.0, -3.0, -3.0, -3.0, -3.0]], np.float32)
+
+
+@pytest.mark.parametrize("masked", [False, True],
+                         ids=["live", "all-masked"])
+@pytest.mark.parametrize("kc", range(1, 7))
+def test_select_clusters_ties_match_lax_and_pallas(kc, masked):
+    """The port's select_clusters (the plain version the card holds the
+    kernel's selection to) gives jax.lax.top_k's ids on tie-heavy cluster
+    scores with -FLT_MAX entries, for every kc up to nc_g, and so does
+    the Pallas kernel in interpret mode fed inputs whose cluster scores
+    are exactly these; an all-masked batch sees -FLT_MAX everywhere."""
+    import jax
+    from repro_torch.kernels.ref import select_clusters
+    cscore = np.full_like(TIED_CLUSTER_SCORES, _FMIN) if masked \
+        else TIED_CLUSTER_SCORES
+    G, nc_g = cscore.shape
+    _, ij = jax.lax.top_k(jnp.asarray(cscore), kc)
+    it = select_clusters(torch.from_numpy(cscore), kc)
+    assert it.dtype == torch.int32
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    # one row x = e_0 and A = e_0 e_0^T make h = e_0, so every score is
+    # exactly Bp[0, n]; each cluster's columns carry its score
+    B, D, r, cs = 1, 64, 8, 32
+    x, wc, A, Bp = _inputs(B, D, r, cs, G, nc_g, 3, seed=21)
+    x[:] = 0.0
+    x[0, 0] = 1.0
+    A[:] = 0.0
+    A[0, 0] = 1.0
+    Bp[0] = np.repeat(TIED_CLUSTER_SCORES.reshape(-1), cs)
+    mask = np.full(B, not masked)
+    (_, ip), (_, itk) = _both(x, wc, A, Bp, "silu", "relu", kc, mask)
+    np.testing.assert_array_equal(ip, np.asarray(ij))
+    np.testing.assert_array_equal(itk, np.asarray(ij))
+
+
 def test_fused_cold_ffn_rejects_quantized_operands():
     """Quantized operands that do not fit the kernel are refused: codes
     that are not int8, scales missing or of the wrong shape, a sidecar
