@@ -25,8 +25,14 @@ without printing a result:
             gate_up;
    gather — cluster_gather_ffn and dense_ffn against their plain
             versions (the reference's sweep, B up to 300, N = 1472 that
-            512 does not divide), timed beside the port's torch.matmul
-            composition of the same FFN;
+            512 does not divide); then, at the full-width shapes, B 1/32/300
+            with the weights L2-cold (each call reads the next of enough
+            weight copies that 64 MB pass between two uses of one): time
+            per call, the same in one CUDA graph, each launch's device time
+            (torch.profiler, which must see exactly gate_up and down), the
+            plain version, the port's torch.matmul composition of the same
+            FFN eagerly and in a graph over the same copies, and the bound
+            (a share of it above 100% fails as a fault of the harness);
 4. serve  — build_engine("smollm-135m", reduced=False, backend="pallas")
             serves a staggered stream of 4 greedy requests at full width
             (30 layers, bf16) through the kernel; the launch count must
@@ -36,7 +42,7 @@ without printing a result:
             kernel's quant mode;
 5. parity — the same stream at full width in fp32 (4 layers) under the
             "pallas" and "jnp" backends: identical tokens, TokenStats
-            and traces, at fp16 and at int4-mixed storage;
+            and traces, at fp16, int8 and int4-mixed storage;
 6. api    — the kernel API at full width: over every layer of the model,
             dense_ffn against its plain version and
             cluster_gather_ffn_grouped over the clusters fused_cold_ffn
@@ -44,10 +50,12 @@ without printing a result:
 7. summary — a JSON line of every kernel, then {"ok": true, ...}.
 
 `--only` runs the card and build phases and then the named ones, and
-prints no summary and no result line (to time another tree's kernel:
-copy this file into its root and run `--only times` there; a tree whose
-fused_cold_ffn launches other kernels than these four is timed with its
-own copy of this script). It imports
+prints no summary and no result line (to time another tree's kernels:
+copy this file into its root and run `--only times` or `--only gather`
+there; a tree whose fused_cold_ffn launches other kernels than these four
+is timed with its own copy of this script, and a tree without
+ops.gather_plan has its gather kernels timed without the name check). It
+imports
 the port only (never jax or the JAX package) and runs on the card only:
 without one it exits non-zero at once.
 """
@@ -55,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -208,29 +217,33 @@ def edge_cases(sd=None):
     return errs
 
 
-def cuda_time_ms(fn, iters=200, warmup=20) -> float:
-    for _ in range(warmup):
-        fn()
+def rotated_ms(fn, n, iters=200, warmup=20):
+    """CUDA-event time per call of fn(i % n), i = 0, 1, ...: with n weight
+    copies, each call reads the next, so no copy is in L2 again when its
+    turn comes (n = 1: back to back)."""
+    for i in range(warmup):
+        fn(i % n)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        fn(i % n)
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
 
-def graph_time_ms(fn, iters=200) -> float:
-    """Device time per call with launch overhead removed: `iters` calls
-    captured in one CUDA graph, replayed and timed with events."""
-    fn()                                   # warm up outside the capture
+def rotated_graph_ms(fn, n, iters=200):
+    """Device time per call with launch overhead removed: the same calls
+    captured in one CUDA graph, replayed once and timed with events."""
+    for i in range(n):                     # warm up outside the capture
+        fn(i)
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
-        for _ in range(iters):
-            fn()
+        for i in range(iters):
+            fn(i % n)
     g.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -239,7 +252,16 @@ def graph_time_ms(fn, iters=200) -> float:
     g.replay()
     end.record()
     torch.cuda.synchronize()
+    del g
     return start.elapsed_time(end) / iters
+
+
+def cuda_time_ms(fn) -> float:
+    return rotated_ms(lambda i: fn(), 1)
+
+
+def graph_time_ms(fn) -> float:
+    return rotated_graph_ms(lambda i: fn(), 1)
 
 
 def roofline(nbytes, ops_, dtype):
@@ -340,33 +362,40 @@ SUBKERNELS = ("hidden_kernel", "score_kernel", "gate_up_kernel",
 OWN = "(anonymous namespace)::"    # how the profiler names the port's kernels
 
 
-def subkernel_us(fn, iters=200):
-    """Device time per call (us) of each of fused_cold_ffn's four kernels,
-    by torch.profiler over `iters` calls; None when the profiler saw no
-    device time. Raises if it saw a kernel of the port's sources that is
-    not one of the four, or missed one of them."""
+def own_kernel_us(fn, n=1, iters=200):
+    """Device time per call (us) of each kernel of the port's sources that
+    `iters` calls of fn(i % n) launch, by torch.profiler, keyed by the
+    kernel's name; None when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    fn(0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+        for i in range(iters):
+            fn(i % n)
         torch.cuda.synchronize()
-    out = dict.fromkeys(SUBKERNELS, 0.0)
+    out, busy = {}, 0.0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        ours = [k for k in SUBKERNELS if f"::{k}" in e.key]
-        if OWN in e.key and not ours:
-            raise AssertionError(f"fused_cold_ffn launched {e.key[:80]}")
-        for k in ours:
-            out[k] += e.self_device_time_total / iters
-    if not any(out.values()):
+        busy += e.self_device_time_total
+        if OWN in e.key:
+            name = re.split(r"[<(]", e.key.split(OWN, 1)[1])[0]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / iters
+    return out if busy else None
+
+
+def subkernel_us(fn):
+    """Device time per call (us) of each of fused_cold_ffn's four kernels;
+    None when the profiler saw no device time. Raises if it saw a kernel
+    of the port's sources that is not one of the four, or missed one."""
+    out = own_kernel_us(lambda i: fn())
+    if out is None:
         return None
-    if not all(out.values()):
-        raise AssertionError(f"the profiler missed kernels of the call: {out}")
-    return out
+    if set(out) != set(SUBKERNELS):
+        raise AssertionError(f"fused_cold_ffn launched {sorted(out)}, "
+                             f"expected {SUBKERNELS}")
+    return {k: out[k] for k in SUBKERNELS}
 
 
 def phase_times():
@@ -471,48 +500,85 @@ def phase_gather():
     print(f"  {n} cases (4 activations x 4 reference shapes, B 1/32/300 x "
           f"N 1536/1472, fp32 and bf16): max |y - plain| = {err:.3e}")
 
+    return err, {B: gather_times(B) for B in GATHER_BATCHES}
+
+
+GATHER_BATCHES = (1, 32, 300)
+L2_COLD_BYTES = 64e6     # rotated weight copies per timing: > the 50 MB L2
+# the kernels of one call; a tree without ops.gather_plan (an earlier
+# design) is timed without this name check
+GATHER_KERNELS = ("gather_gate_up_kernel", "gather_down_kernel")
+
+
+def gather_times(B):
+    """cluster_gather_ffn (12 of 24 clusters) and dense_ffn at the
+    full-width shapes, bf16, with L2-cold weights: each call takes the
+    next of enough weight copies that the calls between two uses of one
+    copy read >= 64 MB. Per kernel: eager and CUDA-graph time per call,
+    each launch's device time (torch.profiler), the plain version, the
+    torch.matmul composition (_apply_bundle over the same rows) eager
+    and in a graph, over the same copies, and the card's bound."""
     s, bf16 = GATHER, torch.bfloat16
-    timings = {}
-    for B in (1, 32):
-        rng = np.random.default_rng(200 + B)
-        x = torch.from_numpy(rng.standard_normal((B, s["D"])).astype(
-            np.float32) * 0.5).to("cuda", bf16)
-        w = torch.from_numpy(rng.standard_normal(
-            (s["N"], s["R"], s["D"])).astype(np.float32) * 0.1).to("cuda",
-                                                                   bf16)
-        idx = torch.from_numpy(rng.permutation(s["N"] // s["cs"])[
-            :s["n_ids"]].astype(np.int32)).cuda()
-        rows = (idx.long()[:, None] * s["cs"]
-                + torch.arange(s["cs"], device="cuda")).reshape(-1)
-        cases = {
-            "cluster_gather_ffn": (
-                lambda: ops.cluster_gather_ffn(x, w, idx, activation="silu",
-                                               cluster_size=s["cs"]),
-                lambda: cluster_gather_ffn_ref(x, w, idx, activation="silu",
-                                               cluster_size=s["cs"]),
-                lambda: _apply_bundle(w[rows], x, "silu"),
-                gather_bound(B, s["n_ids"] * s["cs"], s["n_ids"], bf16)),
-            "dense_ffn": (
-                lambda: ops.dense_ffn(x, w, activation="silu"),
-                lambda: dense_ffn_ref(x, w, activation="silu"),
-                lambda: _apply_bundle(w, x, "silu"),
-                gather_bound(B, s["N"], 0, bf16)),
-        }
-        for name, (kern, plain, comp, (b_ms, b_by)) in cases.items():
-            t = dict(ms=cuda_time_ms(kern), graph_ms=graph_time_ms(kern),
-                     plain_ms=cuda_time_ms(plain),
-                     composition_ms=cuda_time_ms(comp), bound_ms=b_ms,
-                     bound_by=b_by)
-            timings[(name, B)] = t
-            print(f"  {name} B={B:2d} bf16 (D 576, N 1536, R 3"
-                  f"{', 12 of 24 clusters' if 'gather' in name else ''}): "
-                  f"kernel {t['ms'] * 1e3:.2f} us/call "
-                  f"({t['graph_ms'] * 1e3:.2f} us in a CUDA graph), plain "
-                  f"{t['plain_ms'] * 1e3:.2f} us, torch.matmul composition "
-                  f"(_apply_bundle, not one library call) "
-                  f"{t['composition_ms'] * 1e3:.2f} us, bound "
-                  f"{b_ms * 1e3:.3f} us ({b_by})")
-    return err, timings
+    rng = np.random.default_rng(200 + B)
+    x = torch.from_numpy(rng.standard_normal((B, s["D"])).astype(
+        np.float32) * 0.5).to("cuda", bf16)
+    idx = torch.from_numpy(rng.permutation(s["N"] // s["cs"])[
+        :s["n_ids"]].astype(np.int32)).cuda()
+    rows = (idx.long()[:, None] * s["cs"]
+            + torch.arange(s["cs"], device="cuda")).reshape(-1)
+    check_names = hasattr(ops, "gather_plan")
+    out = {}
+    for name, n_neurons in (("cluster_gather_ffn", s["n_ids"] * s["cs"]),
+                            ("dense_ffn", s["N"])):
+        read = n_neurons * s["R"] * s["D"] * 2
+        n = int(np.ceil(L2_COLD_BYTES / read)) + 1
+        w0 = torch.from_numpy(rng.standard_normal(
+            (s["N"], s["R"], s["D"])).astype(np.float32) * 0.1).to("cuda", bf16)
+        ws = [w0] + [w0.clone() for _ in range(n - 1)]    # n addresses
+        if name == "dense_ffn":
+            kern = lambda i: ops.dense_ffn(x, ws[i], activation="silu")
+            comp = lambda i: _apply_bundle(ws[i], x, "silu")
+            b_ms, b_by = gather_bound(B, s["N"], 0, bf16)
+        else:
+            kern = lambda i: ops.cluster_gather_ffn(
+                x, ws[i], idx, activation="silu", cluster_size=s["cs"])
+            comp = lambda i: _apply_bundle(ws[i][rows], x, "silu")
+            b_ms, b_by = gather_bound(B, n_neurons, s["n_ids"], bf16)
+        plain = (lambda: dense_ffn_ref(x, ws[0], activation="silu")) \
+            if name == "dense_ffn" else (lambda: cluster_gather_ffn_ref(
+                x, ws[0], idx, activation="silu", cluster_size=s["cs"]))
+        t = dict(ms=rotated_ms(kern, n), graph_ms=rotated_graph_ms(kern, n),
+                 kernel_us=own_kernel_us(kern, n),
+                 plain_ms=cuda_time_ms(plain),
+                 composition_ms=rotated_ms(comp, n),
+                 composition_graph_ms=rotated_graph_ms(comp, n),
+                 bound_ms=b_ms, bound_by=b_by, weight_copies=n)
+        t["roofline_share"] = b_ms / t["graph_ms"]
+        del ws, w0
+        if t["roofline_share"] > 1.0:
+            raise AssertionError(
+                f"{name} B={B}: {t['graph_ms'] * 1e3:.3f} us in a graph beats "
+                f"the bound {b_ms * 1e3:.3f} us: a fault of the timing "
+                f"harness (weights not L2-cold), not a result")
+        seen = t["kernel_us"]
+        if check_names and seen is not None and set(seen) != set(GATHER_KERNELS):
+            raise AssertionError(f"{name} B={B}: the profiler saw "
+                                 f"{sorted(seen)}, expected {GATHER_KERNELS}")
+        parts = "not measured (no CUDA events)" if seen is None else \
+            ", ".join(f"{k} {v:.2f}" for k, v in seen.items()) + " us"
+        print(f"  {name} B={B:3d} bf16 (D 576, N 1536, R 3"
+              f"{', 12 of 24 clusters' if 'gather' in name else ''}; "
+              f"L2-cold over {n} weight copies): kernel "
+              f"{t['ms'] * 1e3:.2f} us/call ({t['graph_ms'] * 1e3:.2f} us "
+              f"in a CUDA graph, {t['roofline_share']:.1%} of the bound "
+              f"{b_ms * 1e3:.3f} us, {b_by}), plain {t['plain_ms'] * 1e3:.2f} "
+              f"us, torch.matmul composition (_apply_bundle, not one "
+              f"library call) {t['composition_ms'] * 1e3:.2f} us "
+              f"({t['composition_graph_ms'] * 1e3:.2f} us in a CUDA graph)")
+        print(f"    per call: {parts}")
+        out[name] = t
+        torch.cuda.empty_cache()
+    return out
 
 
 # ----------------------------------------------------------- phase 4 ----
@@ -790,8 +856,8 @@ def main(argv=None):
         serve = phase_serve()
         q_serve = {sd: phase_serve(sd) for sd in QUANT}
     if "parity" in run:
-        phase_parity()
-        phase_parity("int4-mixed")
+        for sd in ("fp16",) + QUANT:
+            phase_parity(sd)
     api = phase_api() if "api" in run else None
     if run != set(PHASES):
         print(f"chip_smoke: ran phases {sorted(run)} only; no summary")
@@ -833,7 +899,7 @@ def main(argv=None):
              "B=1 D=576 N=1536 R=3 cs=64 12 of 24 clusters bf16"),
             ("dense_ffn", "src/repro/kernels/dense_ffn.py:22",
              "B=1 D=576 N=1536 R=3 bf16")):
-        g1 = g_timings[(name, 1)]
+        g1 = g_timings[1][name]
         rows.append({
             "name": name, "route": "cuda",
             "source": src + "cluster_gather_ffn.cu", "replaces": line,
@@ -844,9 +910,10 @@ def main(argv=None):
             "plain_ms": g1["plain_ms"], "bound_ms": g1["bound_ms"],
             "bound_by": g1["bound_by"], "library_ms": None,
             "graph_ms": g1["graph_ms"],
-            "composition_ms": g1["composition_ms"], "shape": shape_g,
-            "by_batch": {str(b): v for (n, b), v in g_timings.items()
-                         if n == name}})
+            "composition_ms": g1["composition_ms"],
+            "composition_graph_ms": g1["composition_graph_ms"],
+            "kernel_us": g1["kernel_us"], "l2_cold": True, "shape": shape_g,
+            "by_batch": {str(b): v[name] for b, v in g_timings.items()}})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -98,5 +98,5 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # then the stream)
 _ARGTYPES = {
     "fused_cold_ffn": [_P] * 7 + [_I] + [_P] * 7 + [_I] * 12 + [_P],
-    "cluster_gather_ffn": [_P] * 5 + [_I] * 7 + [_P],
+    "cluster_gather_ffn": [_P] * 5 + [_I] * 17 + [_P],
 }

@@ -10,6 +10,7 @@ falls back to the plain version. Each wrapper keeps a plain integer
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -160,6 +161,113 @@ def fused_cold_ffn(x, wc, A, Bp, *, activation: str, mode: str = "relu",
 fused_cold_ffn.launches = 0
 
 
+# cluster_gather_ffn.cu's tiling (gather_plan): blocks to keep in flight
+# (two per SM of the H100's 132), the dynamic shared memory cap of a block
+# (kMaxSmem in the source), down's splits at most one portable cluster
+# (kMaxSplits), the neurons down stages at once, rows of x per gate_up row
+# group (the weights are staged once per group; 128 measured best at
+# B = 300) and the gate_up blocks that share x by a multicast past 16 rows
+_GATHER_BLOCKS = 264
+_GATHER_SMEM = 120 * 1024
+_GATHER_SPLITS = 8
+_DOWN_CHUNK = {2: 256, 4: 128}
+_GATHER_GROUP_ROWS = 128
+_X_CLUSTER = 4
+_DOWN_COLS = 64          # kDownCols in the source
+
+
+@dataclass(frozen=True)
+class GatherPlan:
+    """How `cluster_gather_ffn.cu` tiles one call (B rows, D columns, K
+    selected neurons, es bytes an element).
+
+    gate_up: blocks of `neurons_per_block` neurons (n_tiles 8-row tiles of
+    weight rows: 4 neurons' gate and up rows each at R = 3, 8 gate rows
+    otherwise), stages of 16 * m_tiles rows of x, D staged `chunk`
+    columns at a time, `gate_groups` row groups (the weights are staged
+    once per group), `x_cluster` neighbouring blocks sharing each stage
+    of x by a multicast (the kernel falls back to 1 where rows of x are
+    not whole 16-byte runs). down: row tiles of 16 * down_m_tiles rows,
+    64-column tiles, the K neurons cut into `splits` runs of `split` (the
+    last may be shorter), staged `down_chunk` at a time; the splits of a
+    column tile are one thread-block cluster that adds their fp32 tiles in
+    rank order through distributed shared memory, so no scratch beyond H
+    is needed."""
+    B: int
+    D: int
+    K: int
+    es: int
+    n_tiles: int
+    m_tiles: int
+    chunk: int
+    gate_groups: int
+    x_cluster: int
+    gate_smem: int
+    neurons_per_block: int
+    down_m_tiles: int
+    down_chunk: int
+    down_smem: int
+    split: int
+    splits: int
+
+    @property
+    def gate_blocks(self) -> int:
+        return -(-self.K // self.neurons_per_block)
+
+    @property
+    def down_blocks(self) -> int:
+        row_tiles = -(-self.B // (16 * self.down_m_tiles))
+        return -(-self.D // _DOWN_COLS) * self.splits * min(row_tiles, 65535)
+
+    @property
+    def ldh(self) -> int:
+        """H's row stride: K rounded up to 8, so rows start 16-byte aligned."""
+        return -(-self.K // 8) * 8
+
+    @property
+    def scratch_bytes(self) -> int:
+        """Device scratch of the call: H (B, ldh) in x's dtype; down's split
+        partials live in its clusters' shared memory."""
+        return self.B * self.ldh * self.es
+
+    def split_ranges(self):
+        """The neuron runs [start, stop) of the down splits, in order."""
+        return [(s * self.split, min(self.K, (s + 1) * self.split))
+                for s in range(self.splits)]
+
+
+def gather_plan(B: int, D: int, K: int, R: int, es: int) -> GatherPlan:
+    """Tile one call of the gathered FFN for the H100 (see GatherPlan):
+    small row stages and k-split warps at decode batch, wider neuron
+    tiles past 64 rows; D chunked to the shared memory cap; down split
+    over the neurons until about 264 blocks are in flight, at most 8
+    splits (one cluster)."""
+    m_tiles = 1 if B <= 16 else 2 if B <= 32 else 4
+    n_tiles = 1 if B <= 64 else 2
+    pad = 16 // es
+    rows = 8 * n_tiles + 16 * m_tiles
+    red = 4 * n_tiles * 128 * 4
+    chunk = min(-(-D // 16) * 16,
+                ((_GATHER_SMEM - red) // (rows * es) - pad) // 16 * 16)
+    down_m_tiles = min(4, -(-B // 16))
+    row_tiles = min(-(-B // (16 * down_m_tiles)), 65535)
+    base = -(-D // _DOWN_COLS) * row_tiles
+    splits = min(-(-_GATHER_BLOCKS // base), _GATHER_SPLITS, -(-K // 16))
+    split = -(-(-(-K // splits)) // 16) * 16     # ceil(K / splits), to 16
+    kc = min(split, _DOWN_CHUNK[es])
+    trows = 16 * down_m_tiles
+    return GatherPlan(
+        B=B, D=D, K=K, es=es, n_tiles=n_tiles, m_tiles=m_tiles, chunk=chunk,
+        gate_groups=min(65535, -(-B // _GATHER_GROUP_ROWS)),
+        x_cluster=1 if B <= 16 else _X_CLUSTER,
+        gate_smem=rows * (chunk + pad) * es + red,
+        neurons_per_block=n_tiles * (4 if R == 3 else 8),
+        down_m_tiles=down_m_tiles, down_chunk=kc,
+        down_smem=(trows * (kc + pad) + kc * (_DOWN_COLS + pad)) * es
+        + trows * _DOWN_COLS * 4,
+        split=split, splits=-(-K // split))
+
+
 def _gather_ffn(x, w, cluster_idx, cluster_size: int, activation: str,
                 name: str):
     """Launch the gathered bundled FFN over the clusters `cluster_idx`
@@ -181,14 +289,17 @@ def _gather_ffn(x, w, cluster_idx, cluster_size: int, activation: str,
         raise ValueError(f"{name}: x and w must be contiguous")
     from repro_torch.kernels.build import library   # builds at first use
     lib = library("cluster_gather_ffn")
-    y = torch.empty((B, D), dtype=x.dtype, device=x.device)
-    H = torch.empty((B, K), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
+    p = gather_plan(B, D, K, R, x.element_size())
+    dev = x.device
+    y = torch.empty((B, D), dtype=x.dtype, device=dev)
+    H = torch.empty((B, p.ldh), dtype=x.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
         rc = lib.cluster_gather_ffn_launch(
-            _ptr(x), _ptr(w), _ptr(cluster_idx), _ptr(H), _ptr(y), B, D, R,
-            K, cluster_size, act, _DTYPE_CODES[x.dtype],
-            ctypes.c_void_p(stream))
+            _ptr(x), _ptr(w), _ptr(cluster_idx), _ptr(H), _ptr(y), B, D, R, K,
+            cluster_size, act, _DTYPE_CODES[x.dtype], p.ldh, p.n_tiles,
+            p.m_tiles, p.chunk, p.gate_groups, p.x_cluster, p.down_m_tiles,
+            p.down_chunk, p.split, p.splits, ctypes.c_void_p(stream))
     _raise_on_error(lib, rc, name, "cluster_gather_ffn")
     return y
 

@@ -47,24 +47,36 @@ def fused_cold_ffn_ref(x, wc, A, Bp, mask, *, activation: str, cats: bool,
     union = torch.where(mask.reshape(B, 1) > 0.0, scores,
                         torch.full_like(scores, NEG)).amax(dim=0)
     idx = select_clusters(union.reshape(G, nc_g, cs).amax(dim=-1), kc)
+    h, wd = picked_ffn(x, wc, idx, activation=activation, wq=wq, wsc=wsc,
+                       wout=wout)
+    if cats:
+        # CATS: each token keeps only the picked neurons its OWN score
+        # marks positive
+        groups = torch.arange(G, device=x.device)[:, None]
+        tok = scores.reshape(B, G, nc_g, cs)[:, groups, idx.long()]
+        h = h * (tok.reshape(B, -1) > 0.0).to(h.dtype)
+    y = h.to(wd.dtype).float() @ wd.float()
+    return y, idx
+
+
+def picked_ffn(x, wc, idx, *, activation: str, wq=None, wsc=None,
+               wout=None):
+    """The picked clusters' FFN before the CATS gate, as fused_cold_ffn_ref
+    computes it: (h (B, K) fp32, the picked Wd rows (K, D) in x's dtype),
+    K = G * kc * cs in (group, pick, neuron) order."""
+    G, nc_g, cs, R, D = wc.shape
+    kc = idx.shape[1]
     groups = torch.arange(G, device=x.device)[:, None]
     if wq is None:
         wsel = wc[groups, idx.long()]
     else:
         wsel = _gather_quant(wq, wsc, wout, idx).to(x.dtype)
     wsel = wsel.reshape(G * kc * cs, R, D)
-    act = activation_fn(activation)
-    h = act(xf @ wsel[:, 0].float().T)                      # (B, K) fp32
+    xf = x.float()
+    h = activation_fn(activation)(xf @ wsel[:, 0].float().T)
     if R == 3:
         h = h * (xf @ wsel[:, 1].float().T)
-    if cats:
-        # CATS: each token keeps only the picked neurons its OWN score
-        # marks positive
-        tok = scores.reshape(B, G, nc_g, cs)[:, groups, idx.long()]
-        h = h * (tok.reshape(B, -1) > 0.0).to(h.dtype)
-    wd = wsel[:, -1]
-    y = h.to(wd.dtype).float() @ wd.float()
-    return y, idx
+    return h, wsel[:, -1]
 
 
 def pick_disagreements(idx_a, idx_b, x, wc, A, Bp, mask, rel: float = 1e-5):
@@ -86,6 +98,32 @@ def pick_disagreements(idx_a, idx_b, x, wc, A, Bp, mask, rel: float = 1e-5):
         tie = abs(va - vb) <= rel * max(abs(va), abs(vb), 1e-30)
         (near if tie else real).append((g, k, int(a[g, k]), int(b[g, k])))
     return near, real
+
+
+# fp32 rounding of a CATS score, relative to the sum of the magnitudes of
+# its products: 16 units of fp32's epsilon (2**-23), well past the
+# difference two fp32 summation orders of the score make
+GATE_REL = 16 * 2.0 ** -23
+
+
+def cats_zero_gates(idx, x, wc, A, Bp, rel: float = GATE_REL):
+    """The (row, picked neuron) pairs whose CATS gate two fp32
+    implementations may set differently: the token's own score of the
+    picked neuron, s = sum_j (sum_i x_i A_ij) Bp_jk recomputed in fp64,
+    lies within `rel` * sum_ij |x_i A_ij Bp_jk| of 0 (the rounding is scaled
+    by the products' magnitudes, not by the result, which may be exactly
+    0). idx (G, kc) are the picks; neuron k of a row counts in (group,
+    pick, neuron) order, as picked_ffn's columns. Returns (P, 2) int64 on
+    the CPU."""
+    G, nc_g, cs = wc.shape[:3]
+    kc = idx.shape[1]
+    ids = idx.long().cpu() + torch.arange(G)[:, None] * nc_g
+    cols = (ids[:, :, None] * cs + torch.arange(cs)).reshape(G * kc * cs)
+    bp = Bp[:, cols.to(Bp.device)].double()
+    xd, ad = x.double(), A.double()
+    score = (xd @ ad) @ bp
+    scale = (xd.abs() @ ad.abs()) @ bp.abs()
+    return (score.abs() <= rel * scale).nonzero().cpu()
 
 
 def _apply_bundle(x, wsel, activation: str):

@@ -127,3 +127,34 @@ def test_unknown_activation_raises():
     with pytest.raises(ValueError, match="not a multiple"):
         tops.cluster_gather_ffn(xt, wt, idx, activation="silu",
                                 cluster_size=48)
+
+
+@pytest.mark.parametrize("B", [1, 17, 300, 4 * 65535 + 5])
+@pytest.mark.parametrize("K,R", [(1536, 3), (768, 3), (1472, 2)])
+@pytest.mark.parametrize("es", [2, 4])
+def test_gather_plan_covers_every_neuron_once(B, K, R, es):
+    """gather_plan's tiles: gate_up's blocks take consecutive runs of
+    neurons_per_block neurons that end at or past K in the last block
+    only; down's splits are consecutive, non-empty runs that partition
+    [0, K), at most one 8-block cluster; every tile width is a multiple of
+    the mma depth (16) and every block's shared memory fits the cap."""
+    p = tops.gather_plan(B, 576, K, R, es)
+    npb = p.neurons_per_block
+    assert (p.gate_blocks - 1) * npb < K <= p.gate_blocks * npb
+    runs = p.split_ranges()
+    assert runs[0][0] == 0 and runs[-1][1] == K
+    assert all(a < b for a, b in runs)
+    assert all(r[1] == n[0] for r, n in zip(runs, runs[1:]))
+    assert 1 <= p.splits <= 8 and p.split % 16 == 0
+    assert p.chunk % 16 == 0 and p.down_chunk % 16 == 0
+    assert max(p.gate_smem, p.down_smem) <= 120 * 1024
+    assert 1 <= p.gate_groups <= 65535
+
+
+def test_gather_plan_scratch_at_b300():
+    """At B = 300 and the full-width shapes (D 576, N 1536, R 3, bf16) the
+    call's only scratch is H (0.9 MB); down's split partials stay in its
+    clusters' shared memory."""
+    p = tops.gather_plan(300, 576, 1536, 3, 2)
+    assert p.scratch_bytes == 300 * 1536 * 2 < 2**20
+    assert p.splits > 1 and p.down_blocks >= 264

@@ -6,7 +6,9 @@ the card. Marked `gpu`: without a card each test skips with a reason.
 
 Tolerances are the reference's own (tests/test_kernels.py): 2e-4 in fp32,
 5e-2 in bf16. Ids must be identical except where the two clusters'
-scores, recomputed in fp64, tie within fp32 rounding.
+scores, recomputed in fp64, tie within fp32 rounding. In CATS mode a row
+whose gate sits on a score within fp32 rounding of 0 (cats_zero_gates)
+must match the plain version with those gates forced on or off.
 """
 import numpy as np
 import pytest
@@ -14,8 +16,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (
-    cluster_gather_ffn_ref, dense_ffn_ref, fused_cold_ffn_ref,
-    pick_disagreements)
+    cats_zero_gates, cluster_gather_ffn_ref, dense_ffn_ref,
+    fused_cold_ffn_ref, pick_disagreements, picked_ffn)
 from repro_torch.quant.storage import quantize_bundles
 
 # (B, D, r, cs, G, nc_g, R, kc, activation, mode, dtype)
@@ -66,8 +68,45 @@ def _check(x, wc, A, Bp, mask, act, mode, kc, **quant):
                                 cats=mode == "cats", kc=kc, **quant)
     near, real = pick_disagreements(idx, ir, x, wc, A, Bp, m)
     assert not real, f"picks differ beyond fp32 ties: {real}"
-    if not near:
-        torch.testing.assert_close(y, yr, atol=tol, rtol=tol)
+    if near:
+        return
+    pairs = cats_zero_gates(idx, x, wc, A, Bp) if mode == "cats" \
+        else torch.empty((0, 2), dtype=torch.long)
+    keep = torch.ones(x.shape[0], dtype=torch.bool)
+    keep[pairs[:, 0]] = False
+    keep = keep.to(x.device)
+    torch.testing.assert_close(y[keep], yr[keep], atol=tol, rtol=tol)
+    if len(pairs):
+        _gate_variants_match(y, x, wc, A, Bp, idx, pairs, act, tol, quant)
+
+
+def _gate_variants_match(y, x, wc, A, Bp, idx, pairs, act, tol, quant):
+    """Each row with m gates on a score within fp32 rounding of 0 matches
+    the plain version with those gates forced on or off, in one of its
+    2^m variants; m above 4 fails."""
+    by_row = {}
+    for r, k in pairs.tolist():
+        by_row.setdefault(r, []).append(k)
+    rows = sorted(by_row)
+    xr = x[torch.tensor(rows, device=x.device)]
+    h, wd = picked_ffn(xr, wc, idx, activation=act, **quant)
+    G, nc_g, cs = wc.shape[:3]
+    groups = torch.arange(G, device=x.device)[:, None]
+    scores = (xr.float() @ A.float()) @ Bp.float()
+    tok = scores.reshape(len(rows), G, nc_g, cs)[:, groups, idx.long()]
+    gate = (tok.reshape(len(rows), -1) > 0.0).float()
+    for i, r in enumerate(rows):
+        ks = by_row[r]
+        assert len(ks) <= 4, f"row {r}: {len(ks)} gates on a zero score"
+        variants = []
+        for bits in range(2 ** len(ks)):
+            g = gate[i].clone()
+            for j, k in enumerate(ks):
+                g[k] = float(bits >> j & 1)
+            variants.append((h[i] * g).to(wd.dtype).float() @ wd.float())
+        assert any(torch.allclose(y[r], v, atol=tol, rtol=tol)
+                   for v in variants), \
+            f"row {r}: no on/off variant of the zero-score gates {ks} matches"
 
 
 @pytest.mark.gpu
@@ -221,6 +260,33 @@ def test_fused_cold_ffn_gate_up_row_tiles(cuda, B, sd):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("cap", ["cs", "r", "nc_g"])
+def test_fused_cold_ffn_shape_caps_raise(cuda, cap):
+    """The card path takes cs <= 1024, r <= 1024 and nc_g <= 12288 (the
+    plain version and the reference take any size): one past each raises
+    ValueError before anything launches, at a tiny D and B."""
+    cs, r, nc_g = {"cs": (1025, 4, 1), "r": (4, 1025, 1),
+                   "nc_g": (4, 4, 12289)}[cap]
+    x, wc, A, Bp = _inputs(2, 8, r, cs, 1, nc_g, 3, torch.bfloat16, cuda)
+    before = ops.fused_cold_ffn.launches
+    with pytest.raises(ValueError, match="unsupported shape"):
+        ops.fused_cold_ffn(x, wc, A, Bp, activation="silu", mode="cats",
+                           kc=1)
+    assert ops.fused_cold_ffn.launches == before
+
+
+@pytest.mark.gpu
+def test_fused_cold_ffn_row_tiles_past_the_grid_cats(cuda):
+    """B = 4 * 65535 + 5 in CATS mode: rows whose gate sits on an fp32
+    score within rounding of 0 (cats_zero_gates) must match the plain
+    version with those gates on or off; every other row within tolerance."""
+    B = 4 * 65535 + 5
+    x, wc, A, Bp = _inputs(B, 576, 64, 64, 1, 23, 3, torch.bfloat16, cuda,
+                           seed=7)
+    _check(x, wc, A, Bp, None, "silu", "cats", 1)
+
+
+@pytest.mark.gpu
 def test_fused_cold_ffn_row_tiles_past_the_grid(cuda):
     """B = 4 * 65535 + 5: gate_up's row tiles (4 rows each) and down's
     pass the grid's 65535 and loop inside the block. In relu mode: over
@@ -272,23 +338,24 @@ def _gather_inputs(B, D, N, R, dtype, device, seed=0):
         t(rng.standard_normal((N, R, D)) * 0.1)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("case", GATHER_CASES,
-                         ids=lambda c: "-".join(map(str, c)))
-def test_gather_and_dense_match_plain(cuda, case):
-    B, D, N, R, cs, act, dtype = case
-    tol = 5e-2 if dtype == torch.bfloat16 else 2e-4
-    x, w = _gather_inputs(B, D, N, R, dtype, cuda)
+def _half_the_clusters(N, cs, device, seed=1):
     n_clusters = N // cs
-    idx = torch.from_numpy(np.random.default_rng(1).permutation(
-        n_clusters)[:max(1, n_clusters // 2)].astype(np.int32)).to(cuda)
+    return torch.from_numpy(np.random.default_rng(seed).permutation(
+        n_clusters)[:max(1, n_clusters // 2)].astype(np.int32)).to(device)
+
+
+def _gather_check(x, w, idx, act, cs):
+    """Both kernels once each (one launch count each) against their
+    plain versions, in x's dtype, at the reference's tolerances."""
+    tol = 5e-2 if x.dtype == torch.bfloat16 else 2e-4
     g0, d0 = ops.cluster_gather_ffn.launches, ops.dense_ffn.launches
     y = ops.cluster_gather_ffn(x, w, idx, activation=act, cluster_size=cs)
     yd = ops.dense_ffn(x, w, activation=act)
     torch.cuda.synchronize()
     assert (ops.cluster_gather_ffn.launches, ops.dense_ffn.launches) == \
         (g0 + 1, d0 + 1)
-    assert y.dtype == yd.dtype == dtype
+    assert y.dtype == yd.dtype == x.dtype
+    assert y.shape == yd.shape == x.shape
     torch.testing.assert_close(
         y.float(), cluster_gather_ffn_ref(x, w, idx, activation=act,
                                           cluster_size=cs).float(),
@@ -299,9 +366,68 @@ def test_gather_and_dense_match_plain(cuda, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", GATHER_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_gather_and_dense_match_plain(cuda, case):
+    B, D, N, R, cs, act, dtype = case
+    x, w = _gather_inputs(B, D, N, R, dtype, cuda)
+    _gather_check(x, w, _half_the_clusters(N, cs, cuda), act, cs)
+
+
+# (B, D, N, R, cs, dtype): rows of 16-byte multiples that D does not
+# fill to the mma depth (200, bf16 and fp32) and rows that are no 16-byte
+# multiple (203), N = 1472, clusters of 32 and 128, and B on each side of
+# the multicast (B > 16) and row-group (128 rows) edges
+GATHER_EDGE = [
+    (37, 200, 512, 3, 64, torch.bfloat16),
+    (37, 203, 512, 3, 64, torch.bfloat16),
+    (37, 200, 512, 3, 64, torch.float32),
+    (37, 203, 512, 2, 64, torch.float32),
+    (16, 576, 1472, 3, 32, torch.bfloat16),
+    (129, 576, 1536, 3, 128, torch.bfloat16),
+    (65, 256, 1024, 3, 32, torch.float32),
+    (300, 203, 1024, 3, 128, torch.bfloat16),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GATHER_EDGE,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_gather_and_dense_edge_shapes(cuda, case):
+    B, D, N, R, cs, dtype = case
+    x, w = _gather_inputs(B, D, N, R, dtype, cuda, seed=B + D)
+    _gather_check(x, w, _half_the_clusters(N, cs, cuda, seed=D), "silu", cs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset,D", [(64, 576), (1, 203)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gather_duplicate_ids_and_offset_view(cuda, dtype, offset, D):
+    """w as the view w_full[offset:] (chip_smoke's phase 6 passes
+    w[n_hot:]; offset 1 at D = 203 starts every bundle off a 16-byte
+    boundary), and cluster ids that repeat: each repeat adds its cluster's
+    FFN again, as the plain version's gather does."""
+    N, cs = 1536, 64
+    x, wfull = _gather_inputs(40, D, offset + N, 3, dtype, cuda, seed=offset)
+    w = wfull[offset:]
+    assert w.is_contiguous() and w.storage_offset() > 0
+    idx = torch.tensor([3, 3, 0, 17, 3, 23], dtype=torch.int32, device=cuda)
+    _gather_check(x, w, idx, "silu", cs)
+
+
+@pytest.mark.gpu
+def test_gather_and_dense_past_the_grid(cuda):
+    """B = 4 * 65535 + 5 for both kernels: gate_up's row groups and down's
+    row tiles at that size."""
+    B, D, N, cs = 4 * 65535 + 5, 128, 512, 64
+    x, w = _gather_inputs(B, D, N, 3, torch.bfloat16, cuda, seed=11)
+    _gather_check(x, w, _half_the_clusters(N, cs, cuda), "silu", cs)
+
+
+@pytest.mark.gpu
 def test_gather_grouped_and_repeat(cuda):
     """The grouped form offsets ids by g * nc_g; two runs agree bit for
-    bit (no atomics)."""
+    bit (no atomics), here and for both kernels at B = 300 in bf16."""
     G, nc_g, cs, D, B = 3, 4, 32, 64, 5
     x, w = _gather_inputs(B, D, G * nc_g * cs, 3, torch.float32, cuda)
     wc = w.reshape(G, nc_g, cs, 3, D)
@@ -314,3 +440,11 @@ def test_gather_grouped_and_repeat(cuda):
                                      cidx[g], activation="silu",
                                      cluster_size=cs) for g in range(G))
     torch.testing.assert_close(y1, ref, atol=2e-4, rtol=2e-4)
+    # both kernels at B = 300 in bf16, full width: every sum in a fixed
+    # order (k-slices, down's cluster ranks), no float atomics
+    x, w = _gather_inputs(300, 576, 1536, 3, torch.bfloat16, cuda, seed=300)
+    idx = _half_the_clusters(1536, 64, cuda)
+    for run in (lambda: ops.cluster_gather_ffn(x, w, idx, activation="silu",
+                                               cluster_size=64),
+                lambda: ops.dense_ffn(x, w, activation="silu")):
+        assert torch.equal(run(), run())

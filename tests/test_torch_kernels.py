@@ -190,3 +190,27 @@ def test_fused_cold_ffn_rejects_quantized_operands():
         call(wout=q["wout"])
     with pytest.raises(TypeError, match="wout is torch.float32"):
         call(wq=q["wq"], wsc=q["wsc"], wout=q["wout"].float())
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_cats_zero_gates_flags_a_zero_score(G):
+    """kernels/ref.py::cats_zero_gates flags a (row, picked neuron) pair
+    whose CATS score is exactly 0 by construction (h = x.A = (1, 1) against
+    a Bp column (1, -1): products of size 1, sum 0), and leaves scores far
+    from 0 alone, in every group."""
+    from repro_torch.kernels.ref import cats_zero_gates
+    nc_g, cs, D, r = 2, 2, 4, 2
+    x = torch.tensor([[1.0, 0.0, 0.0, 0.0], [0.0, 1.0, 0.0, 0.0]])
+    A = torch.tensor([[1.0, 1.0], [2.0, -1.0], [0.0, 0.0], [0.0, 0.0]])
+    # per group, cluster 1's neurons: (1, -1) -> scores 0 and 3 for rows
+    # 0 and 1; (1, 1) -> 2 and 1; cluster 0's are never picked
+    block = torch.tensor([[5.0, 5.0, 1.0, 1.0], [5.0, 5.0, -1.0, 1.0]])
+    Bp = block.repeat(1, G)
+    wc = torch.zeros((G, nc_g, cs, 3, D))
+    idx = torch.ones((G, 1), dtype=torch.int32)
+    pairs = cats_zero_gates(idx, x, wc, A, Bp)
+    assert pairs.tolist() == [[0, g * cs] for g in range(G)]
+    # a score that is small but far above fp32 rounding is not flagged
+    Bp2 = Bp.clone()
+    Bp2[1, 2::4] = -0.999
+    assert cats_zero_gates(idx, x, wc, A, Bp2).tolist() == []
