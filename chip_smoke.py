@@ -35,11 +35,20 @@ without printing a result:
             (a share of it above 100% fails as a fault of the harness);
 4. serve  — build_engine("smollm-135m", reduced=False, backend="pallas")
             serves a staggered stream of 4 greedy requests at full width
-            (30 layers, bf16) through the kernel; the launch count must
-            be 30 per decode step; a profile of decode steps gives the
-            device time and the fused_cold_ffn kernels per step; then
-            the same at storage dtypes int8 and int4-mixed through the
-            kernel's quant mode;
+            (30 layers, bf16) through the kernel, crossing the bucket
+            ladder up and down, then a Best-of-N generate() whose batch
+            decays 4 -> 1; twice, with one CUDA graph per decode bucket
+            (the default) and eagerly (cuda_graphs=False): tokens,
+            per-step cluster ids and every TokenStats field must be
+            identical between the two, the launch count 30 per decode
+            step in both, and the profiler must see fused_cold_ffn's four
+            kernels per layer and step in both; each run reports its wall
+            per step, its device time per step (torch.profiler; for the
+            graphs also CUDA events around the replays), kernels per step
+            and the storage plane's host time; at fp16, the KV arena's
+            rows and bytes and the peak device memory of generate() at B
+            1, 4 and 64 at ctx_budget 2048; then the same at storage
+            dtypes int8 and int4-mixed through the kernel's quant mode;
 5. parity — the same stream at full width in fp32 (4 layers) under the
             "pallas" and "jnp" backends: identical tokens, TokenStats
             and traces, at fp16, int8 and int4-mixed storage;
@@ -55,13 +64,13 @@ copy this file into its root and run `--only times` or `--only gather`
 there; a tree whose fused_cold_ffn launches other kernels than these four
 is timed with its own copy of this script, and a tree without
 ops.gather_plan has its gather kernels timed without the name check). It
-imports
-the port only (never jax or the JAX package) and runs on the card only:
+imports the port only (never jax or the JAX package) and runs on the card only:
 without one it exits non-zero at once.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import re
 import subprocess
@@ -75,6 +84,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.adaptation import bucket_for  # noqa: E402
 from repro_torch.core.planner import PHONE, build_plan  # noqa: E402
 from repro_torch.kernels import build as kbuild, ops  # noqa: E402
 from repro_torch.core.sparse_ffn import _apply_bundle  # noqa: E402
@@ -620,11 +630,39 @@ def serve_stream(engine, vocab, seed=0):
     return toks, stats + rep.stats, walls
 
 
+class ReplayEvents:
+    """CUDA events around every CUDA graph replay inside the `with`: the
+    device time of the graphed decode steps, whether or not the profiler
+    sees the kernels inside a graph."""
+
+    def __enter__(self):
+        self.pairs, orig = [], torch.cuda.CUDAGraph.replay
+        self._orig = orig
+
+        def replay(graph):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            orig(graph)
+            end.record()
+            self.pairs.append((start, end))
+        torch.cuda.CUDAGraph.replay = replay
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.CUDAGraph.replay = self._orig
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.pairs)
+
+
 def profile_steps(engine, vocab, batch=4, n_new=5):
     """torch.profiler over the decode steps of `batch` fresh requests
     (admission and prefill stay outside the window): wall and device time
     per step, kernels per step, and the kernels that take the most device
-    time. Reports "not measured" when the profiler sees no device time."""
+    time; for a graphed engine also CUDA events around the replays.
+    Reports "not measured" when the profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(2)
     for _ in range(batch):
@@ -634,7 +672,8 @@ def profile_steps(engine, vocab, batch=4, n_new=5):
     torch.cuda.synchronize()
     steps = 0
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            ReplayEvents() as replays:
         t0 = time.perf_counter()
         while engine.step() is not None:
             steps += 1
@@ -643,13 +682,20 @@ def profile_steps(engine, vocab, batch=4, n_new=5):
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in dev) / 1e3   # ms
+    out = dict(wall_ms_per_step=wall * 1e3 / steps,
+               replays=len(replays.pairs),
+               replay_ms_per_step=replays.ms() / steps if replays.pairs
+               else None)
     print(f"  profile: {steps} decode steps at batch <= {batch}, wall "
-          f"{wall * 1e3 / steps:.2f} ms/step")
+          f"{out['wall_ms_per_step']:.2f} ms/step")
+    if out["replays"]:
+        print(f"  CUDA events around the {out['replays']} graph replays: "
+              f"{out['replay_ms_per_step']:.3f} ms/step on the device")
     if busy == 0.0:
         print("  profile: device time not measured (no CUDA events)")
-        return None
+        return out
     cold = [e for e in dev if any(f"::{k}" in e.key for k in SUBKERNELS)]
-    out = dict(device_ms_per_step=busy / steps,
+    out.update(device_ms_per_step=busy / steps,
                kernels_per_step=sum(e.count for e in dev) / steps,
                cold_kernels_per_step=sum(e.count for e in cold) / steps,
                cold_ms_per_step=sum(e.self_device_time_total
@@ -665,21 +711,36 @@ def profile_steps(engine, vocab, batch=4, n_new=5):
     return out
 
 
-def phase_serve(sd="fp16"):
-    print(f"== phase 4: serve smollm-135m at full width through the kernel, "
-          f"storage dtype {sd}")
+# Best-of-N on one prompt: four samples, cancelled one by one after steps
+# 3, 6 and 9, so the batch decays 4 -> 3 -> 2 -> 1 down the bucket ladder
+BON = dict(n=4, prompt_len=16, max_new=12, schedule={3: 1, 6: 1, 9: 1})
+BON_BATCHES = [4] * 4 + [3] * 3 + [2] * 3 + [1] * 2
+
+
+def serve_run(sd, graphs):
+    """One full-width engine (graphed, the default, or eager): the
+    staggered STREAM, then the Best-of-N decay, then a profile; the
+    launch count is set to 0 before and read after each of the first
+    two."""
+    gc.collect()              # free the previous run's engine first
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     engine, cfg = build_engine("smollm-135m", reduced=False,
                                backend="pallas", ctx_budget=CTX,
-                               storage_dtype=sd)
+                               storage_dtype=sd,
+                               cuda_graphs=None if graphs else False)
+    if engine.cuda_graphs != graphs:
+        raise AssertionError(f"cuda_graphs is {engine.cuda_graphs}")
     if (engine.model.layers[0].ffn.quant is None) != (sd == "fp16"):
         raise AssertionError(f"{sd}: quantized containers missing or stray")
-    # host seconds the storage plane (numpy, on the CPU) takes per step
-    plane, price = [], engine.storage.step
+    # each step's trace, and the host seconds the storage plane (numpy,
+    # on the CPU) takes to price it
+    plane, traces, price = [], [], engine.storage.step
 
-    def timed(*a, **k):
+    def timed(trace, *a, **k):
+        traces.append(np.array(trace).tolist())
         t0 = time.perf_counter()
-        out = price(*a, **k)
+        out = price(trace, *a, **k)
         plane.append(time.perf_counter() - t0)
         return out
     engine.storage.step = timed
@@ -689,34 +750,152 @@ def phase_serve(sd="fp16"):
     peak = torch.cuda.max_memory_allocated()
     hist = list(engine.sched.batch_history)
     plane_ms = float(np.mean(plane) * 1e3)
+    prompt = np.repeat(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (1, BON["prompt_len"])).astype(np.int32),
+        BON["n"], axis=0)
+    prompt[:, -1] = np.arange(BON["n"])        # four different samples
+    ops.fused_cold_ffn.launches = 0
+    bon = engine.generate(prompt, max_new=BON["max_new"], temperature=0.0,
+                          completion_schedule=BON["schedule"])
+    torch.cuda.synchronize()
+    bon_launches = ops.fused_cold_ffn.launches
+    check_logits(engine)
     prof = profile_steps(engine, cfg.vocab_size)
+    # a graphed replay's launch count is the capture's; hold it against
+    # the kernels the profiler saw on the card (four per layer and step)
+    want = len(SUBKERNELS) * cfg.num_layers
+    if prof.get("cold_kernels_per_step") != want:
+        raise AssertionError(f"the profiler saw "
+                             f"{prof.get('cold_kernels_per_step')} "
+                             f"fused_cold_ffn kernels per step, not {want}")
+    captures = sum(getattr(fn, "captures", 0)
+                   for _, fn in engine.decoder._cache.values())
+    switches = engine.decoder.switches
     engine.close()
     steps = len(stats)
-    print(f"  {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.param_dtype}; {steps} decode steps, batch sizes {hist}")
     for t in toks:
         if len(t) != MAX_NEW or not all(0 <= v < cfg.vocab_size for v in t):
             raise AssertionError(f"bad request output {t}")
     if max(hist) != len(STREAM) or len(set(hist)) < 3:
         raise AssertionError(f"stream did not cross buckets: {hist}")
-    if launches != cfg.num_layers * steps:
-        raise AssertionError(f"{launches} kernel launches for {steps} "
-                             f"steps of {cfg.num_layers} layers")
+    bon_batches = [s.batch for s in bon.stats]
+    if bon_batches != BON_BATCHES:
+        raise AssertionError(f"Best-of-N batches {bon_batches}")
+    for name, n, k in (("stream", launches, steps),
+                       ("Best-of-N", bon_launches, len(bon.stats))):
+        if n != cfg.num_layers * k:
+            raise AssertionError(f"{name}: {n} kernel launches for {k} "
+                                 f"steps of {cfg.num_layers} layers")
     w = np.array(walls) * 1e3
+    return dict(
+        launches=launches, steps=steps, bon_launches=bon_launches,
+        bon_steps=len(bon.stats), wall_ms_first=float(w[0]),
+        wall_ms_median=float(np.median(w)), wall_ms_mean=float(w.mean()),
+        wall_ms_mean_after_first=float(w[1:].mean()), plane_ms=plane_ms,
+        peak_bytes=peak, batch_history=hist, bon_batches=bon_batches,
+        profile=prof, captures=captures, switches=switches,
+        num_layers=cfg.num_layers, d_model=cfg.d_model,
+        param_dtype=cfg.param_dtype, vocab=cfg.vocab_size,
+        outputs=dict(tokens=toks, traces=traces, stats=stats,
+                     bon_tokens=bon.tokens.tolist(), bon_stats=bon.stats))
+
+
+def report_run(name, r):
+    p = r["profile"]
+    dev = p.get("device_ms_per_step")
+    print(f"  {name}: fused_cold_ffn launches {r['launches']} = "
+          f"{r['num_layers']} x {r['steps']} steps, Best-of-N "
+          f"{r['bon_launches']} = {r['num_layers']} x {r['bon_steps']} "
+          f"(batches {r['bon_batches']}); {r['captures']} graphs captured, "
+          f"{r['switches']} bucket switches")
+    print(f"    wall per decode step (synchronized): first "
+          f"{r['wall_ms_first']:.2f} ms, median {r['wall_ms_median']:.2f} "
+          f"ms, mean {r['wall_ms_mean']:.2f} ms, mean after the first "
+          f"{r['wall_ms_mean_after_first']:.2f} ms")
+    if dev is None:
+        print("    device time per step: not measured by the profiler")
+    else:
+        print(f"    device time per step (torch.profiler): {dev:.3f} ms, "
+              f"{dev / p['wall_ms_per_step']:.1%} of the profiled step's "
+              f"wall, {dev / r['wall_ms_median']:.1%} of the median wall; "
+              f"{p['kernels_per_step']:.0f} kernels per step")
+    if p["replay_ms_per_step"] is not None:
+        print(f"    device time per step (CUDA events around the replays): "
+              f"{p['replay_ms_per_step']:.3f} ms, "
+              f"{p['replay_ms_per_step'] / r['wall_ms_median']:.1%} of the "
+              f"median wall")
+    print(f"    storage plane (host) {r['plane_ms']:.2f} ms per step; peak "
+          f"device memory {r['peak_bytes'] / 2**20:.1f} MiB")
+
+
+# the context budget of the memory check: a realistic serving context
+MEM_CTX = 2048
+
+
+def serve_memory(batches=(1, 4, 64)):
+    """A graphed full-width engine at ctx_budget MEM_CTX serves
+    generate() at each batch in turn: the KV arena holds the rows of the
+    batch's bucket (it grows with the batch, never to max_slots ahead of
+    it). Reports its bytes and the peak device memory of each call."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine, cfg = build_engine("smollm-135m", reduced=False,
+                               backend="pallas", ctx_budget=MEM_CTX)
+    rng = np.random.default_rng(5)
+    out = {}
+    for b in batches:
+        torch.cuda.reset_peak_memory_stats()
+        engine.generate(rng.integers(0, cfg.vocab_size, (b, 16)).astype(
+            np.int32), max_new=4, temperature=0.0)
+        torch.cuda.synchronize()
+        check_logits(engine)
+        arena = engine.arena
+        if arena.capacity != bucket_for(b, engine.decoder.buckets):
+            raise AssertionError(f"B={b}: arena of {arena.capacity} rows")
+        out[b] = dict(capacity=arena.capacity,
+                      arena_bytes=sum(t.numel() * t.element_size()
+                                      for t in arena.storage.values()),
+                      peak_bytes=torch.cuda.max_memory_allocated())
+        print(f"  memory at ctx_budget {MEM_CTX}, B={b}: KV arena "
+              f"{out[b]['capacity']} rows, "
+              f"{out[b]['arena_bytes'] / 2**20:.1f} MiB; peak device "
+              f"memory {out[b]['peak_bytes'] / 2**20:.1f} MiB")
+    engine.close()
+    return out
+
+
+def phase_serve(sd="fp16"):
+    """The full-width stream served twice, with one CUDA graph per
+    decode bucket (the default) and eagerly: tokens, per-step cluster
+    ids and every TokenStats field must be identical, and the launch
+    count 30 per step in both."""
+    print(f"== phase 4: serve smollm-135m at full width through the kernel, "
+          f"storage dtype {sd}, graphed and eager")
+    runs = {"graph": serve_run(sd, True), "eager": serve_run(sd, False)}
+    g, e = runs["graph"], runs["eager"]
+    print(f"  {g['num_layers']} layers, d_model {g['d_model']}, "
+          f"{g['param_dtype']}; {g['steps']} decode steps, batch sizes "
+          f"{g['batch_history']}")
+    for key, val in g["outputs"].items():
+        if val != e["outputs"][key]:
+            raise AssertionError(f"{sd}: graphed and eager {key} differ")
+    if g["batch_history"] != e["batch_history"] or g["captures"] < 4:
+        raise AssertionError(f"{sd}: histories {g['batch_history']} / "
+                             f"{e['batch_history']}, {g['captures']} graphs")
+    print(f"  graphed and eager: tokens, {len(g['outputs']['traces'])} "
+          f"per-step cluster-id traces and every TokenStats field "
+          f"identical, Best-of-N included")
+    for name, r in runs.items():
+        report_run(name, r)
+    stats = g["outputs"]["stats"]
     modeled = sum(s.batch for s in stats) / sum(s.effective_s for s in stats)
-    print(f"  fused_cold_ffn launches {launches} = {cfg.num_layers} x "
-          f"{steps} steps")
-    print(f"  wall per decode step (synchronized): first {w[0]:.2f} ms, "
-          f"mean {w.mean():.2f} ms, median {np.median(w):.2f} ms, "
-          f"mean after the first {w[1:].mean():.2f} ms")
-    print(f"  storage plane (host) {plane_ms:.2f} ms per step")
-    print(f"  peak device memory {peak / 2**20:.1f} MiB")
     print(f"  modeled decode rate (storage plane, PHONE profile): "
           f"{modeled:.2f} tok/s")
-    return dict(launches=launches, steps=steps, wall_ms_mean=float(w.mean()),
-                plane_ms=plane_ms,
-                wall_ms_median=float(np.median(w)), peak_bytes=peak,
-                batch_history=hist, profile=prof)
+    out = {k: v for k, v in g.items() if k != "outputs"}
+    out["eager"] = {k: v for k, v in e.items() if k != "outputs"}
+    if sd == "fp16":
+        out["memory"] = serve_memory()
+    return out
 
 
 # ----------------------------------------------------------- phase 5 ----
@@ -878,7 +1057,10 @@ def main(argv=None):
         "subkernel_us": t1["subkernel_us"],
         "by_batch": {str(b): v for (sd, b), v in times.items()
                      if sd == "fp16"},
-        "decode_steps": serve["steps"], "serve_profile": serve["profile"]}, {
+        "decode_steps": serve["steps"], "serve_profile": serve["profile"],
+        "serve_wall_ms_median": {"graph": serve["wall_ms_median"],
+                                 "eager": serve["eager"]["wall_ms_median"]},
+        "serve_eager_profile": serve["eager"]["profile"]}, {
         "name": "fused_cold_ffn (quant mode)", "route": "cuda",
         "source": src + "fused_cold_ffn.cu",
         "replaces": "src/repro/kernels/cluster_gather_ffn.py:148",
@@ -893,7 +1075,12 @@ def main(argv=None):
                            for (sd, b), v in times.items() if sd != "fp16"},
         "launches_by_dtype": {sd: v["launches"] for sd, v in q_serve.items()},
         "decode_steps": {sd: v["steps"] for sd, v in q_serve.items()},
-        "serve_profile": {sd: v["profile"] for sd, v in q_serve.items()}}]
+        "serve_profile": {sd: v["profile"] for sd, v in q_serve.items()},
+        "serve_wall_ms_median": {sd: {"graph": v["wall_ms_median"],
+                                      "eager": v["eager"]["wall_ms_median"]}
+                                 for sd, v in q_serve.items()},
+        "serve_eager_profile": {sd: v["eager"]["profile"]
+                                for sd, v in q_serve.items()}}]
     for name, line, shape_g in (
             ("cluster_gather_ffn", "src/repro/kernels/cluster_gather_ffn.py:80",
              "B=1 D=576 N=1536 R=3 cs=64 12 of 24 clusters bf16"),

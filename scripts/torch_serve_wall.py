@@ -2,7 +2,7 @@
 two trees on one CUDA card.
 
     python3 scripts/torch_serve_wall.py --src SRC [--storage-dtype fp16]
-        [--repeat 2] [--label NAME]
+        [--repeat 2] [--label NAME] [--eager]
 
 imports `repro_torch` from SRC (a checkout's `src` directory), builds
 smollm-135m at full width (30 layers, bf16) with the "pallas" cold-path
@@ -10,9 +10,11 @@ backend at the given storage dtype, serves a stream of 4 greedy requests
 (prompts 16/16/32/24, 16 new tokens, arrivals staggered over the first 7
 steps) `--repeat` times on one engine, and prints one JSON line: the
 card, and per repeat the synchronized wall time of every decode step
-(first, median, mean after the first). To compare trees, run the script
-once per tree in one call, alternating (A, B, B, A). Without a card it
-exits non-zero.
+(first, median, mean after the first). `--eager` serves with
+cuda_graphs=False (a tree whose engine captures one CUDA graph per decode
+bucket; without the flag the engine's default is used). To compare trees,
+run the script once per tree in one call, alternating (A, B, B, A).
+Without a card it exits non-zero.
 """
 from __future__ import annotations
 
@@ -56,6 +58,8 @@ def main(argv=None):
     ap.add_argument("--storage-dtype", default="fp16")
     ap.add_argument("--repeat", type=int, default=2)
     ap.add_argument("--label", default=None)
+    ap.add_argument("--eager", action="store_true",
+                    help="run the decode step eagerly (cuda_graphs=False)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_serve_wall: no CUDA card", file=sys.stderr)
@@ -68,6 +72,8 @@ def main(argv=None):
         text=True, timeout=60).stdout.strip().splitlines()[0]
     kw = {} if args.storage_dtype == "fp16" else \
         {"storage_dtype": args.storage_dtype}
+    if args.eager:
+        kw["cuda_graphs"] = False
     engine, cfg = build_engine("smollm-135m", reduced=False,
                                backend="pallas", ctx_budget=64, **kw)
     runs = []
@@ -78,7 +84,8 @@ def main(argv=None):
                          mean_after_first_ms=float(w[1:].mean())))
     engine.close()
     print(json.dumps({"label": args.label or args.src, "card": card,
-                      "storage_dtype": args.storage_dtype, "runs": runs}))
+                      "storage_dtype": args.storage_dtype,
+                      "eager": args.eager, "runs": runs}))
     return 0
 
 

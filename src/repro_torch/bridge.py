@@ -1,63 +1,108 @@
 """Weights from the reference's parameter layout.
 
 `params_from_numpy(tree, cfg)` builds the port's `DenseModel` from the
-JAX package's parameter pytree with every leaf given as a numpy array:
+JAX package's parameter pytree with every leaf given as a numpy array
+(`load_checkpoint` reads that tree from a checkpoint the reference
+saved):
 {"embed", "out_norm", ["lm_head"], "layers": {"ln1", "ln2", "attn":
 {"wq", "wk", "wv", "wo"}, "ffn": {"w", ["pred": {"A", "B"}], ["wq",
 "wsc", ["wout"]]}}}, layer leaves stacked (L, ...); the FFN's wq/wsc/wout
 are the stored cold bundles of int8 / int4-mixed storage. It reads numpy
-alone; bfloat16 leaves (numpy's ml_dtypes extension type) cross over bit
-for bit through a uint16 view.
+alone. bfloat16 leaves cross over bit for bit through a uint16 view:
+numpy holds them as ml_dtypes' extension type, or, read back from a
+`.npy` without it, as bare 2-byte voids or their uint16 bits, so a
+leaf's declared dtype (`dtypes`, from a checkpoint's manifest) wins over
+the array's own.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.ckpt import SEP, restore_numpy
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.dense import DenseModel
 from repro_torch.models.modules import resolve_device
 
 
-def _tensor(a) -> torch.Tensor:
+def _tensor(a, dtype: str = None) -> torch.Tensor:
+    """A CPU tensor of the numpy array `a`; `dtype` is the leaf's
+    declared dtype name (default: a's own)."""
     a = np.array(a)                 # a writable, contiguous copy
-    if a.dtype.name == "bfloat16":
+    name = dtype or a.dtype.name
+    if name == "bfloat16":
+        if a.dtype.itemsize != 2:
+            raise TypeError(f"a {a.dtype} array holds no bfloat16")
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    if a.dtype.name != name:
+        raise TypeError(f"array is {a.dtype}, declared {name}")
     return torch.from_numpy(a)
 
 
+def _leaf(tree, dtypes, *keys):
+    """(array, declared dtype) of the leaf at `keys`; KeyError names the
+    leaf as a checkpoint does."""
+    t, d = tree, dtypes
+    for k in keys:
+        if k not in t:
+            raise KeyError(f"missing leaf {SEP.join(keys)!r}")
+        t, d = t[k], (d or {}).get(k)
+    return t, d
+
+
 @torch.no_grad()
-def _load(param: torch.nn.Parameter, a, name: str):
-    t = _tensor(a)
+def _load(param: torch.nn.Parameter, a, name: str, dtype: str = None):
+    t = _tensor(a, dtype)
     if tuple(t.shape) != tuple(param.shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} does not match "
                          f"the port's {tuple(param.shape)}")
     param.copy_(t.to(param.dtype))
 
 
-def params_from_numpy(tree, cfg: ModelConfig, device=None) -> DenseModel:
+def params_from_numpy(tree, cfg: ModelConfig, device=None,
+                      dtypes=None) -> DenseModel:
     """The port's model on `device` (default `cuda`) holding `tree`'s
-    weights."""
+    weights; `dtypes` (the same nesting) declares leaves' dtypes."""
     model = DenseModel(cfg, resolve_device(device))
-    _load(model.embed, tree["embed"], "embed")
-    _load(model.out_norm, tree["out_norm"], "out_norm")
+
+    def load(param, *keys, layer=None):
+        a, dt = _leaf(tree, dtypes, *keys)
+        name = ".".join(keys)
+        if layer is not None:
+            a, name = a[layer], f"{name}[{layer}]"
+        _load(param, a, name, dt)
+
+    load(model.embed, "embed")
+    load(model.out_norm, "out_norm")
     if model.lm_head is not None:
-        _load(model.lm_head, tree["lm_head"], "lm_head")
-    lt = tree["layers"]
+        load(model.lm_head, "lm_head")
+    ffn = _leaf(tree, dtypes, "layers", "ffn")[0]
     for l, layer in enumerate(model.layers):
-        _load(layer.ln1, lt["ln1"][l], f"layers.ln1[{l}]")
-        _load(layer.ln2, lt["ln2"][l], f"layers.ln2[{l}]")
+        load(layer.ln1, "layers", "ln1", layer=l)
+        load(layer.ln2, "layers", "ln2", layer=l)
         for k in ("wq", "wk", "wv", "wo"):
-            _load(getattr(layer.attn, k), lt["attn"][k][l],
-                  f"layers.attn.{k}[{l}]")
-        _load(layer.ffn.w, lt["ffn"]["w"][l], f"layers.ffn.w[{l}]")
-        for k in ("wq", "wsc", "wout"):
-            if k in lt["ffn"]:
-                setattr(layer.ffn, k,
-                        _tensor(lt["ffn"][k][l]).to(model.device))
+            load(getattr(layer.attn, k), "layers", "attn", k, layer=l)
+        load(layer.ffn.w, "layers", "ffn", "w", layer=l)
+        N, R, D = layer.ffn.w.shape
+        for k, shape in (("wq", (N, R, D)), ("wsc", (N, R)),
+                         ("wout", (N, R, D))):
+            if k in ffn:
+                a, dt = _leaf(tree, dtypes, "layers", "ffn", k)
+                t = _tensor(a[l], dt)
+                if tuple(t.shape) != shape:
+                    raise ValueError(f"layers.ffn.{k}[{l}]: shape "
+                                     f"{tuple(t.shape)}, expected {shape}")
+                setattr(layer.ffn, k, t.to(model.device))
         if layer.ffn.pred_A is not None:
-            _load(layer.ffn.pred_A, lt["ffn"]["pred"]["A"][l],
-                  f"layers.ffn.pred.A[{l}]")
-            _load(layer.ffn.pred_B, lt["ffn"]["pred"]["B"][l],
-                  f"layers.ffn.pred.B[{l}]")
+            load(layer.ffn.pred_A, "layers", "ffn", "pred", "A", layer=l)
+            load(layer.ffn.pred_B, "layers", "ffn", "pred", "B", layer=l)
     return model
+
+
+def load_checkpoint(path: str, cfg: ModelConfig, device=None) -> DenseModel:
+    """The port's model on `device` (default `cuda`) from a checkpoint the
+    reference's `save_checkpoint` wrote (a parameter tree already
+    permuted, and for int8 / int4-mixed storage quantized, to match the
+    plan it is served with)."""
+    ckpt = restore_numpy(path)
+    return params_from_numpy(ckpt.tree, cfg, device, dtypes=ckpt.dtypes)

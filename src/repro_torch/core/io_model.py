@@ -1,15 +1,19 @@
-"""Storage-tier performance model (paper §2.3.2).
+"""Storage-tier performance models (paper §2.3.2).
 
-A copy of `repro/core/io_model.py` cut to what the serving path prices
-with: the `StorageModel` interface and the paper's measured UFS 4.0.
+A copy of `repro/core/io_model.py` without `KernelCalibration` (which
+waits for the port's kernel benchmarks): the `StorageModel` interface,
+the paper's UFS 4.0 and UFS 3.1, the host-DMA tier, and the core and
+command-queue derates.
 
 Numbers for `UFS40` come straight from the paper:
   * sequential: 450 MB/s @4KB -> 4 GB/s @512KB
   * random:     1 GB/s @4KB/128MB range, 3.5 GB/s @512KB
+  * core dependence: big 1076 / mid 1008 / little 762 MB/s
+  * single command queue: concurrency degrades up to 40%
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 import bisect
 
 
@@ -66,3 +70,32 @@ UFS40 = StorageModel(
                 (65536, 2400.0), (524288, 3500.0)),
     base_latency_us=80.0,
 )
+
+UFS31 = StorageModel(
+    name="ufs3.1",
+    seq_curve=((4096, 300.0), (65536, 1100.0), (524288, 2100.0)),
+    rand_curve=((4096, 550.0), (24576, 1000.0), (524288, 1800.0)),
+    base_latency_us=110.0,
+)
+
+# a slow tier of host DRAM behind PCIe-class DMA: sequential and random
+# converge for large blocks; latency dominates small transfers
+HOST_DMA = StorageModel(
+    name="host-dma",
+    seq_curve=((4096, 4000.0), (65536, 20000.0), (524288, 50000.0)),
+    rand_curve=((4096, 2000.0), (65536, 15000.0), (524288, 45000.0)),
+    base_latency_us=20.0,
+)
+
+
+def with_core(model: StorageModel, core: str) -> StorageModel:
+    """Paper Table 1: I/O throughput depends on the issuing core."""
+    derate = {"big": 1.0, "mid": 0.94, "little": 0.71}[core]
+    return replace(model, core_derate=derate)
+
+
+def with_queue_contention(model: StorageModel, n_issuers: int) -> StorageModel:
+    """Paper §2.3.2: UFS has a single command queue; multiple issuing
+    cores degrade throughput by up to 40%."""
+    derate = 1.0 if n_issuers <= 1 else max(0.6, 1.0 - 0.1 * (n_issuers - 1))
+    return replace(model, queue_derate=derate)

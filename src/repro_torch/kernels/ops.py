@@ -5,7 +5,8 @@ tensors lie on the CPU. For CUDA tensors it checks devices, dtypes,
 shapes and strides, allocates outputs and scratch with `torch.empty`,
 launches on the current stream and raises if the launch fails: it never
 falls back to the plain version. Each wrapper keeps a plain integer
-`launches` count, raised by one per call that launches its kernel.
+`launches` count, raised by one per call that launches its kernel;
+`launch_counts` / `set_launch_counts` read and write all of them.
 """
 from __future__ import annotations
 
@@ -25,6 +26,28 @@ _MODE_FP, _MODE_INT8, _MODE_MIXED = 0, 1, 2
 # rows of A per block of fused_cold_ffn's hidden kernel (kHidD): h is
 # scratch of ceil(D / 64) fp32 partial products per (row, column)
 _HIDDEN_SPLIT = 64
+
+
+# the wrappers that count their launches (`_counts_launches`)
+_COUNTED = []
+
+
+def _counts_launches(fn):
+    """Give wrapper `fn` a `launches` count, starting at 0."""
+    fn.launches = 0
+    _COUNTED.append(fn)
+    return fn
+
+
+def launch_counts() -> dict:
+    """Every counted wrapper's `launches`, by name."""
+    return {fn.__name__: fn.launches for fn in _COUNTED}
+
+
+def set_launch_counts(counts: dict):
+    """Set every count from `counts`, as `launch_counts` gives them."""
+    for fn in _COUNTED:
+        fn.launches = counts[fn.__name__]
 
 
 def _ptr(t) -> ctypes.c_void_p:
@@ -81,6 +104,7 @@ def _quant_mode(wc, wq, wsc, wout) -> int:
     return _MODE_INT8 if wout is None else _MODE_MIXED
 
 
+@_counts_launches
 def fused_cold_ffn(x, wc, A, Bp, *, activation: str, mode: str = "relu",
                    kc: int, active_mask=None, wq=None, wsc=None, wout=None):
     """Fused cold path: predictor score -> batch-union top-k -> cluster
@@ -157,8 +181,6 @@ def fused_cold_ffn(x, wc, A, Bp, *, activation: str, mode: str = "relu",
     fused_cold_ffn.launches += 1
     return y, idx
 
-
-fused_cold_ffn.launches = 0
 
 
 # cluster_gather_ffn.cu's tiling (gather_plan): blocks to keep in flight
@@ -304,6 +326,7 @@ def _gather_ffn(x, w, cluster_idx, cluster_size: int, activation: str,
     return y
 
 
+@_counts_launches
 def cluster_gather_ffn(x, w, cluster_idx, *, activation: str,
                        cluster_size: int):
     """Sum of the bundled FFN over caller-given clusters (replaces
@@ -329,8 +352,6 @@ def cluster_gather_ffn(x, w, cluster_idx, *, activation: str,
     return y
 
 
-cluster_gather_ffn.launches = 0
-
 
 def cluster_gather_ffn_grouped(x, wc, cidx, *, activation: str):
     """Grouped form: x (B, D); wc (G, nc_g, cs, R, D) cold clusters per
@@ -346,6 +367,7 @@ def cluster_gather_ffn_grouped(x, wc, cidx, *, activation: str):
                               activation=activation, cluster_size=cs)
 
 
+@_counts_launches
 def dense_ffn(x, w, *, activation: str, block_n: int = 512):
     """Full dense bundled FFN over w (N, R, D) (replaces
     `repro.kernels.dense_ffn.dense_ffn`). x (B, D) -> (B, D) in x's
@@ -361,7 +383,6 @@ def dense_ffn(x, w, *, activation: str, block_n: int = 512):
     return y
 
 
-dense_ffn.launches = 0
-
 __all__ = ["cluster_gather_ffn", "cluster_gather_ffn_grouped",
-           "fused_cold_ffn", "dense_ffn"]
+           "fused_cold_ffn", "dense_ffn", "launch_counts",
+           "set_launch_counts"]

@@ -6,7 +6,9 @@ Plan (offline §5) -> permute weights hot-first -> ServeEngine (online
   PYTHONPATH=src python -m repro_torch.launch.serve --backend pallas \
       --bon 4 --max-new 32            # smollm-135m at full width
 
-`--storage-dtype int8|int4-mixed` serves quantized cold bundles.
+`--storage-dtype int8|int4-mixed` serves quantized cold bundles;
+`--host-dma` prices the slow tier as host DRAM behind DMA instead of UFS
+4.0. On the card each decode bucket runs as one captured CUDA graph.
 
 `--reduced` serves the 2-layer reduced config instead. Latencies the
 driver prints are the storage plane's *modeled* figures; the wall time
@@ -15,14 +17,13 @@ is measured on the device it ran on.
 from __future__ import annotations
 
 import argparse
-import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.baselines import POWERINFER2
-from repro_torch.core.io_model import UFS40
+from repro_torch.core.io_model import HOST_DMA, UFS40
 from repro_torch.core.planner import PHONE
 from repro_torch.models.modules import resolve_device
 from repro_torch.serving.engine import ServeEngine
@@ -78,11 +79,17 @@ def main(argv=None):
                          "bundles are quantized at prepare time, both cold "
                          "paths dequantize at the gather boundary, and the "
                          "storage plane prices the declared bundle bytes")
+    ap.add_argument("--host-dma", action="store_true",
+                    help="price the slow tier as host DRAM behind DMA "
+                         "instead of UFS 4.0")
     args = ap.parse_args(argv)
 
+    storage = HOST_DMA if args.host_dma else UFS40
     engine, cfg = build_engine(args.arch, args.reduced, args.offload,
-                               backend=args.backend, device=args.device,
-                               storage_dtype=args.storage_dtype)
+                               storage=storage, backend=args.backend,
+                               device=args.device,
+                               storage_dtype=args.storage_dtype,
+                               temperature=args.temperature)
     rng = np.random.default_rng(0)
     prompt = rng.integers(0, cfg.vocab_size,
                           (args.bon, args.prompt_len)).astype(np.int32)
@@ -94,7 +101,7 @@ def main(argv=None):
     hit = float(np.mean([s.cache_hit_rate for s in res.stats]))
     io = sum(s.io_s for s in res.stats)
     eff = sum(s.effective_s for s in res.stats)
-    print(f"arch={cfg.name} spec=powerinfer-2 storage={UFS40.name} "
+    print(f"arch={cfg.name} spec=powerinfer-2 storage={storage.name} "
           f"device={engine.device} backend={args.backend} "
           f"storage_dtype={args.storage_dtype}")
     print(f"modeled decode: {res.tokens_per_s:.2f} tok/s | "

@@ -161,7 +161,9 @@ def decode_step(model: DenseModel, tokens, cache,
                 collect_indices: bool = False):
     """tokens (B, 1) -> (logits (B, 1, V), cache[, cluster_ids]).
 
-    The cache is updated in place and returned. active_mask (B,) bool:
+    The cache is updated in place, every tensor keeping its storage (a
+    CUDA graph of the step replays on the same buffers), and returned.
+    active_mask (B,) bool:
     live rows for the sparse-FFN batch-union selection; None = all rows
     live. collect_indices=True also returns the per-layer selected cold
     cluster ids (L, G, kc), the trace the storage plane prices."""
@@ -183,7 +185,7 @@ def decode_step(model: DenseModel, tokens, cache,
             f, cidx = f
             cidxs.append(cidx)
         x = x + f
-    cache["length"] = pos + 1
+    cache["length"].add_(1)      # pos is this tensor: every use came first
     logits = lm_logits(model, x)
     if collect_indices:
         # the dense path (no plan, or sparse FFN off) selects nothing

@@ -48,31 +48,66 @@ def write_pos(kv_pos, pos):
     return kv_pos
 
 
+# the fresh state of a slot: no keys or values, every position empty
+_FRESH = {"k": 0, "v": 0, "kv_pos": -1, "length": 0}
+_SLOT_DIM = {"k": 1, "v": 1, "kv_pos": 0, "length": 0}
+
+
 class KVSlotArena:
     """Fixed-slot KV arena with a free list (continuous batching).
 
-    Physical layout is the ordinary full cache — (L, n_slots, T, KV, dh)
-    buffers — but rows are *slots* owned by live requests. Admitting a
-    request writes its prefilled KV into a free slot (live rows
-    untouched); completion returns the slot to the free list. Freed slots
-    keep decoding as masked "zombie" lanes whose outputs are ignored, so
-    the decode shape never changes inside a bucket. `resize`, the only
-    operation that reshapes the buffers, runs only at decoder
-    bucket-boundary crossings.
+    Physical layout is the ordinary full cache — (L, capacity, T, KV, dh)
+    buffers — but rows are *slots* owned by live requests. The buffers
+    are allocated at `capacity` rows (the largest bucket the engine's
+    submitted work can reach) and move only when `grow` enlarges them:
+    the cache of a bucket of n slots is the view of rows [0, n)
+    (`cache`), so each layer's `cache["k"][l]` stays contiguous and a
+    CUDA graph captured on a bucket's views reads the same storage at
+    every replay until the next `grow`. Admitting a request writes its
+    prefilled KV into a free slot (live rows untouched); completion
+    returns the slot to the free list. Freed slots keep decoding as
+    masked "zombie" lanes whose outputs are ignored, so the decode shape
+    never changes inside a bucket. `resize`, the only operation that
+    changes the view, runs only at decoder bucket-boundary crossings.
+
+    Memory: capacity x T x L x 2 x KV x dh x itemsize bytes; at
+    smollm-135m's full width (30 layers, 3 KV heads of 64, bf16) 23,040
+    bytes per slot and position: 94 MB at 64 slots of 64 positions, 47
+    MB at one slot of 2,048, 3.0 GB at 64 slots of 2,048.
     """
 
     def __init__(self, n_layers, n_slots, max_len, kv_heads, d_head, dtype,
-                 device):
+                 device, capacity: int = None):
+        capacity = n_slots if capacity is None else capacity
+        if not 0 < n_slots <= capacity:
+            raise ValueError(f"{n_slots} slots do not fit an arena of "
+                             f"{capacity}")
         self.dims = (n_layers, kv_heads, d_head)
         self.max_len = max_len
         self.dtype = dtype
         self.device = device
-        self.cache = init_full_cache(n_layers, n_slots, max_len, kv_heads,
-                                     d_head, dtype, device)
+        self.storage = init_full_cache(n_layers, capacity, max_len,
+                                       kv_heads, d_head, dtype, device)
+        self._set_view(n_slots)
         self.free = list(range(n_slots))
         self.slot_of: dict = {}          # uid -> slot
         self.writes = 0
         self.resizes = 0
+
+    def view(self, n: int) -> dict:
+        """The cache of rows [0, n): views of the storage, no copy."""
+        if not 0 < n <= self.capacity:
+            raise ValueError(f"a view of {n} slots does not fit the "
+                             f"arena's capacity of {self.capacity}")
+        return {name: t.narrow(_SLOT_DIM[name], 0, n)
+                for name, t in self.storage.items()}
+
+    def _set_view(self, n: int):
+        self.cache = self.view(n)
+
+    @property
+    def capacity(self) -> int:
+        return self.storage["k"].shape[1]
 
     @property
     def n_slots(self) -> int:
@@ -115,24 +150,43 @@ class KVSlotArena:
     def rows_for(self, uids):
         return [self.slot_of[u] for u in uids]
 
+    def grow(self, capacity: int):
+        """Move the slots to new storage of `capacity` rows: slot numbers,
+        the view's size and its contents stay, the rows past the old
+        capacity are fresh. Every view taken before is stale after."""
+        if capacity < self.capacity:
+            raise ValueError(f"an arena of {self.capacity} slots does not "
+                             f"grow to {capacity}")
+        n = self.n_slots
+        L, kv_heads, d_head = self.dims
+        storage = init_full_cache(L, capacity, self.max_len, kv_heads,
+                                  d_head, self.dtype, self.device)
+        for name, t in self.cache.items():
+            storage[name].narrow(_SLOT_DIM[name], 0, n).copy_(t)
+        self.storage = storage
+        self._set_view(n)
+
     def resize(self, new_n_slots: int, uid_order):
-        """Gather live rows (in uid_order) into a new arena of
-        `new_n_slots` slots; live requests are renumbered 0..k-1."""
+        """Move the live rows (in uid_order) to rows 0..k-1 of the same
+        storage, through a temporary, and reset rows k..new_n_slots-1 to
+        the fresh state; the view becomes rows [0, new_n_slots). Live
+        requests are renumbered 0..k-1. The contents equal those of a
+        fresh arena of new_n_slots slots with the live rows written in."""
         rows = [self.slot_of[u] for u in uid_order]
         k_live = len(rows)
         if k_live > new_n_slots:
             raise ValueError(f"{k_live} live requests do not fit "
                              f"{new_n_slots} slots")
-        nl, kv, dh = self.dims
-        new = init_full_cache(nl, new_n_slots, self.max_len, kv, dh,
-                              self.dtype, self.device)
-        if k_live:
-            idx = torch.tensor(rows, dtype=torch.long, device=self.device)
-            new["k"][:, :k_live] = self.cache["k"].index_select(1, idx)
-            new["v"][:, :k_live] = self.cache["v"].index_select(1, idx)
-            new["kv_pos"][:k_live] = self.cache["kv_pos"].index_select(0, idx)
-            new["length"][:k_live] = self.cache["length"].index_select(0, idx)
-        self.cache = new
+        if new_n_slots > self.capacity:
+            raise ValueError(f"{new_n_slots} slots exceed the arena's "
+                             f"capacity of {self.capacity}")
+        idx = torch.tensor(rows, dtype=torch.long, device=self.device)
+        for name, t in self.storage.items():
+            dim = _SLOT_DIM[name]
+            if k_live:
+                t.narrow(dim, 0, k_live).copy_(t.index_select(dim, idx))
+            t.narrow(dim, k_live, new_n_slots - k_live).fill_(_FRESH[name])
+        self._set_view(new_n_slots)
         self.slot_of = {u: i for i, u in enumerate(uid_order)}
         self.free = list(range(k_live, new_n_slots))
         self.resizes += 1

@@ -3,10 +3,10 @@
 Counterpart of `repro/serving/engine.py` at dp=1 with no mesh. Three
 layers:
 
-* **Data plane** — numerically real: one decode callable per batch
-  bucket (core/adaptation.BucketedDecoder) runs the hybrid hot/cold FFN
-  and returns, besides logits, the per-layer cold-cluster selections
-  (the activation trace).
+* **Data plane** — numerically real: one decode step per batch bucket
+  (core/adaptation.BucketedDecoder), on a CUDA card one captured CUDA
+  graph per bucket, runs the hybrid hot/cold FFN and returns, besides
+  logits, the per-layer cold-cluster selections (the activation trace).
 * **Storage plane** (serving/storage_plane.py) — the trace drives the
   segmented NeuronCache and the bundled ColdStore; I/O time comes from
   the StorageModel and per-token effective latency from the
@@ -17,11 +17,15 @@ layers:
 
 submit()/step()/run_until_drained() drive requests through the slot
 KV arena; generate() is the static-batch wrapper over the same loop.
-The engine runs on the model's device.
+The engine runs on the model's device. A step feeds the bucket's graph
+through static device buffers (tokens, live mask, the arena's views) and
+copies its outputs out; sampling and the two host reads (the sampled
+tokens, the trace) stay outside the graph.
 """
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -85,7 +89,8 @@ class StepResult:
 @dataclass
 class ServeReport:
     """Aggregate serving metrics over a drained request stream. Times
-    are on the modeled clock."""
+    are on the modeled clock: `throughput_tok_s` is the span-based rate,
+    `tokens_per_s` the sum-of-step-latency (pipeline) rate."""
     stats: list                        # TokenStats per step
     requests: list                     # finished Requests
     span_s: float = 0.0                # drained span on the modeled clock
@@ -99,12 +104,36 @@ class ServeReport:
         total = sum(s.effective_s for s in self.stats)
         return self.total_tokens / total if total else 0.0
 
+    @property
+    def throughput_tok_s(self) -> float:
+        return self.total_tokens / self.span_s if self.span_s else 0.0
+
+    def ttft(self) -> np.ndarray:
+        """TTFT over requests that produced a first token (a request
+        cancelled before its first token is left out)."""
+        return np.array([r.ttft for r in self.requests
+                         if r.ttft is not None])
+
+    def token_latencies(self) -> np.ndarray:
+        """Per-token effective latency: every token generated in a step
+        experienced that step's effective seconds."""
+        out = []
+        for s in self.stats:
+            out.extend([s.effective_s] * s.batch)
+        return np.array(out)
+
+    def latency_percentiles(self):
+        return _percentiles(self.token_latencies())
+
 
 class ServeEngine:
     """Single-device continuous-batching engine for the dense family.
 
     `model` is the port's DenseModel (its weights already permuted
-    hot-first to match `plan`); the engine runs on its device."""
+    hot-first to match `plan`); the engine runs on its device.
+    `cuda_graphs`: None captures each bucket's decode step in a CUDA
+    graph on a CUDA device and runs it eagerly on the CPU; False runs it
+    eagerly on either; True on the CPU raises."""
 
     def __init__(self, cfg: ModelConfig, model, plan: ExecutionPlan,
                  spec: SystemSpec = POWERINFER2,
@@ -119,7 +148,8 @@ class ServeEngine:
                  eos_id: int = None,
                  temperature: float = 0.8,
                  prefetch: bool = True,
-                 backend: str = None):
+                 backend: str = None,
+                 cuda_graphs: Optional[bool] = None):
         self.family = serving_family(cfg)
         if backend not in (None, "jnp", "pallas"):
             raise ValueError(f"unknown cold-path backend {backend!r}; "
@@ -131,14 +161,23 @@ class ServeEngine:
         self.model = model
         self.device = model.device
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        on_cuda = self.device.type == "cuda"
+        if cuda_graphs and not on_cuda:
+            raise ValueError(f"cuda_graphs=True needs a CUDA device; the "
+                             f"model is on {self.device}")
+        self.cuda_graphs = on_cuda if cuda_graphs is None else cuda_graphs
 
         # ---- data plane ----
         step_fn = self.family.make_decode_step(cfg)
+        # the decoder reaches the engine's buffers through a weak
+        # reference: no cycle keeps a dropped engine's device memory
+        engine = weakref.ref(self)
         self.decoder = BucketedDecoder(
             plan_source=plan,
             make_step=lambda p: (lambda m, t, c, a: step_fn(m, t, c, p, a)),
             buckets=tuple(buckets) if buckets else tuple(range(1, 65)),
-            backend=backend)
+            backend=backend, graphs=self.cuda_graphs,
+            inputs=lambda n: engine()._step_inputs(n))
 
         # ---- storage plane ----
         self.storage = StoragePlane(
@@ -149,18 +188,61 @@ class ServeEngine:
         # ---- scheduler + KV slots ----
         self.sched = BatchScheduler(eos_id=eos_id)
         self.arena: Optional[KVSlotArena] = None
-        self._last = None                  # (n_slots, V) next-token logits
+        # the step's static inputs (max_slots rows) and the next-token
+        # logits (the arena's capacity); a bucket of n slots reads [:n]
+        self._tokens = torch.zeros((self.max_slots, 1), dtype=torch.int32,
+                                   device=self.device)
+        self._mask = torch.zeros((self.max_slots,), dtype=torch.bool,
+                                 device=self.device)
+        self._last_store = None            # (arena capacity, V)
+        self._last = None                  # its view (n_slots, V)
         self._temperature = temperature
         self.ctx_budget = ctx_budget
         self.clock_s = 0.0                 # modeled serving clock
 
     def close(self):
-        """Release the storage plane's I/O thread (also runs at GC)."""
+        """Release the storage plane's I/O thread (also runs at GC) and
+        the captured graphs."""
+        self.decoder.drop_graphs()
         self.storage.close()
+
+    # ----------------------------------------------- storage plane view ----
+    @property
+    def cache(self):
+        return self.storage.cache
+
+    @property
+    def coldstore(self):
+        return self.storage.coldstore
+
+    @property
+    def timing(self):
+        return self.storage.timing
+
+    @property
+    def hw(self):
+        return self.storage.hw
 
     @property
     def max_slots(self) -> int:
         return self.decoder.buckets[-1]
+
+    # --------------------------------------------------- load reporting ----
+    @property
+    def load(self) -> int:
+        """Outstanding requests (queued + running)."""
+        return self.sched.load
+
+    def next_event_time(self) -> Optional[float]:
+        """When this engine's next decode event completes work on the
+        modeled clock: its clock while a batch is running, else the head
+        arrival it would jump to; None when drained."""
+        if not self.sched.has_work:
+            return None
+        if self.sched.running:
+            return self.clock_s
+        nxt = self.sched.next_arrival()
+        return max(self.clock_s, nxt) if nxt is not None else self.clock_s
 
     # ------------------------------------------------------- admission ----
     def submit(self, prompt, max_new: int = 32,
@@ -179,33 +261,72 @@ class ServeEngine:
         req = self.sched.submit(prompt, max_new, arrival_time)
         return req.uid
 
-    def _ensure_arena(self, n_slots: int, min_len: int):
+    def _ensure_arena(self, n_slots: int, min_len: int, reach: int):
+        """Make the arena hold a bucket of n_slots. It is allocated at
+        `reach` rows, the bucket that all submitted work could fill (at
+        least n_slots), and grows (at least doubling, at most to
+        max_slots) only when a bucket passes its capacity."""
         cfg = self.cfg
         if self.arena is None:
             T = max(self.ctx_budget or 0, min_len)
             self.arena = KVSlotArena(cfg.num_layers, n_slots, T,
                                      cfg.num_kv_heads, cfg.d_head,
-                                     dtype_of(cfg.param_dtype), self.device)
-            self._last = torch.zeros((n_slots, cfg.vocab_padded),
-                                     dtype=dtype_of(cfg.compute_dtype),
-                                     device=self.device)
-        elif min_len > self.arena.max_len:
+                                     dtype_of(cfg.param_dtype), self.device,
+                                     capacity=reach)
+            self._last_store = torch.zeros(
+                (reach, cfg.vocab_padded),
+                dtype=dtype_of(cfg.compute_dtype), device=self.device)
+            self._last = self._last_store[:n_slots]
+            return
+        if min_len > self.arena.max_len:
             raise ValueError(
                 f"admitted request needs {min_len} KV positions but the "
                 f"arena was sized for {self.arena.max_len}; raise "
                 f"ctx_budget")
-        elif self.arena.n_slots != n_slots:
+        if n_slots > self.arena.capacity:
+            self._grow(bucket_for(
+                min(max(reach, 2 * self.arena.capacity), self.max_slots),
+                self.decoder.buckets))
+        if self.arena.n_slots != n_slots:
             order = list(self.sched.running)
             rows = self.arena.rows_for(order)
             self.arena.resize(n_slots, order)
-            # gather the per-slot logits the same way
-            last = torch.zeros((n_slots,) + tuple(self._last.shape[1:]),
-                               dtype=self._last.dtype, device=self.device)
-            if rows:
+            # move the per-slot logits the same way
+            k = len(rows)
+            if k:
                 idx = torch.tensor(rows, dtype=torch.long,
                                    device=self.device)
-                last[:len(rows)] = self._last.index_select(0, idx)
-            self._last = last
+                self._last_store[:k] = self._last_store.index_select(0, idx)
+            self._last_store[k:n_slots] = 0
+            self._last = self._last_store[:n_slots]
+
+    def _grow(self, capacity: int):
+        """Move the arena and the logits to `capacity` rows; every graph
+        read the old storage, so they all go."""
+        self.arena.grow(capacity)
+        last = self._last_store.new_zeros((capacity,
+                                           self._last_store.shape[1]))
+        last[:self.arena.n_slots] = self._last
+        self._last_store, self._last = last, last[:self.arena.n_slots]
+        self.decoder.drop_graphs()
+
+    def prewarm(self):
+        """Build every bucket's decode step now and, on a graphed engine,
+        capture each one, on an arena grown to max_slots rows. The arena
+        comes from the first step: serve one first."""
+        if self.arena is None:
+            raise RuntimeError("no KV arena yet: serve a step first")
+        if self.arena.capacity < self.max_slots:
+            self._grow(self.max_slots)
+        self.decoder.prewarm()
+
+    def _step_inputs(self, n_slots: int):
+        """The static inputs of an n_slots bucket's decode step: (model,
+        tokens (n, 1), the arena's views, live mask (n,))."""
+        if self.arena is None:
+            raise RuntimeError("no KV arena yet: serve a step first")
+        return (self.model, self._tokens[:n_slots],
+                self.arena.view(n_slots), self._mask[:n_slots])
 
     def _admit(self, reqs: list):
         """Prefill-on-admit: joint prefill per prompt-length group,
@@ -256,13 +377,17 @@ class ServeEngine:
             return None
         # the KV arena tracks the decoder's bucket table: one resize per
         # boundary crossing. Its length is fixed at creation, so size it
-        # for everything already submitted.
-        b = bucket_for(n_active, self.decoder.buckets)
+        # for everything already submitted, and its rows for the bucket
+        # all of that could fill.
+        buckets = self.decoder.buckets
+        b = bucket_for(n_active, buckets)
         need = [r.prompt_len + r.max_new for r in admits]
         if self.arena is None:
             need += [sched.sequences[u].prompt_len
                      + sched.sequences[u].max_new for u in sched.queue]
-        self._ensure_arena(b, max(need, default=0))
+        reach = bucket_for(min(n_active + len(sched.queue), self.max_slots),
+                           buckets)
+        self._ensure_arena(b, max(need, default=0), reach)
         if admits:
             self._admit(admits)
         n_slots = self.arena.n_slots
@@ -277,16 +402,18 @@ class ServeEngine:
         feed[rows] = toks_active.cpu().numpy()
         mask = np.zeros((n_slots,), bool)
         mask[rows] = True
-        logits, cache, cidx = step_fn(
-            self.model, torch.from_numpy(feed)[:, None].to(self.device),
-            self.arena.cache, torch.from_numpy(mask).to(self.device))
-        self.arena.cache = cache
-        self._last = logits[:, 0]
+        tokens, live = self._tokens[:n_slots], self._mask[:n_slots]
+        tokens.copy_(torch.from_numpy(feed)[:, None])
+        live.copy_(torch.from_numpy(mask))
+        logits, _, cidx = step_fn(self.model, tokens, self.arena.cache, live)
+        # a graph's outputs are overwritten by the next replay: copy out
+        self._last.copy_(logits[:, 0])
+        trace = cidx.cpu().numpy()
 
         ctx = float(np.mean([sched.sequences[u].prompt_len
                              + sched.sequences[u].n_generated
                              for u in sched.running]))
-        st = self.storage.step(cidx.cpu().numpy(), plan_b, n_active, ctx)
+        st = self.storage.step(trace, plan_b, n_active, ctx)
         self.clock_s += st.effective_s
 
         tok_map = {u: int(feed[s])
@@ -331,10 +458,17 @@ class ServeEngine:
 
     # ---------------------------------------------- compatibility API ----
     def generate(self, prompt_tokens, max_new: int = 32,
-                 temperature: float = 0.8) -> GenerationResult:
+                 temperature: float = 0.8,
+                 completion_schedule: Optional[dict] = None,
+                 eos_id: Optional[int] = None) -> GenerationResult:
         """Static-batch wrapper over the continuous loop: submit B
         requests at the current clock, drain, return (B, max_new)
-        tokens (-1 past a request's end)."""
+        tokens (-1 past a request's end).
+
+        completion_schedule: {step: n_finish} cancels the first n_finish
+        still-running sequences after that step (Fig 13's Best-of-N
+        batch decay, deterministically). eos_id ends a sequence at that
+        token for this call (None: no EOS)."""
         prompt = np.asarray(prompt_tokens)
         B, S = prompt.shape
         if self.sched.has_work:
@@ -343,17 +477,29 @@ class ServeEngine:
         # wall_s is an observability stat, never fed back into the
         # modeled clock or any scheduling decision
         t_wall = time.perf_counter()
-        old_temp = self._temperature
+        old_temp, old_eos = self._temperature, self.sched.eos_id
         self._temperature = temperature
+        self.sched.eos_id = eos_id
         # static batch wants an exact-length arena
         if self.arena is not None and self.arena.max_len != S + max_new \
                 and self.ctx_budget is None:
             self.arena = None
+            self.decoder.drop_graphs()     # they read the old arena
         uids = [self.submit(prompt[i], max_new) for i in range(B)]
+        stats = []
+        step_i = 0
         try:
-            stats = self.run_until_drained().stats
+            while self.sched.has_work:
+                r = self.step()
+                if r is None:
+                    break
+                stats.append(r.stats)
+                if completion_schedule and step_i in completion_schedule:
+                    still = [u for u in uids if u in self.sched.running]
+                    self.cancel(still[: completion_schedule[step_i]])
+                step_i += 1
         finally:
-            self._temperature = old_temp
+            self._temperature, self.sched.eos_id = old_temp, old_eos
         tokens = np.full((B, max_new), -1, np.int32)
         for i, u in enumerate(uids):
             gen = self.sched.sequences[u].generated

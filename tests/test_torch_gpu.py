@@ -448,3 +448,172 @@ def test_gather_grouped_and_repeat(cuda):
                                                cluster_size=64),
                 lambda: ops.dense_ffn(x, w, activation="silu")):
         assert torch.equal(run(), run())
+
+
+# ------------------------------------------- the decode step's CUDA graphs ----
+
+# (prompt length, max_new, arrival step): the batch walks the bucket
+# ladder up (1, 2, 3), down (1) and back up (2, 3)
+GRAPH_STREAM = [(12, 10, 0), (12, 4, 1), (20, 3, 2), (16, 8, 8),
+                (14, 6, 9)]
+
+
+def _full_width_engine(sd, cuda_graphs, **kw):
+    from repro_torch.launch.serve import build_engine
+    engine, cfg = build_engine("smollm-135m", reduced=False,
+                               backend="pallas", storage_dtype=sd,
+                               temperature=0.0, cuda_graphs=cuda_graphs,
+                               **kw)
+    traces = []
+    price = engine.storage.step
+
+    def record(trace, *a, **k):
+        traces.append(np.array(trace))
+        return price(trace, *a, **k)
+    engine.storage.step = record
+    return engine, cfg, traces
+
+
+def _serve_graph_stream(engine, vocab):
+    """GRAPH_STREAM on the engine's steps; returns (tokens per request,
+    TokenStats per step)."""
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, vocab, n).astype(np.int32)
+               for n, _, _ in GRAPH_STREAM]
+    uids, stats = {}, []
+    k = 0
+    while k <= max(a for *_, a in GRAPH_STREAM) or engine.sched.has_work:
+        for i, (_, m, arrive) in enumerate(GRAPH_STREAM):
+            if arrive == k:
+                uids[i] = engine.submit(prompts[i], max_new=m,
+                                        arrival_time=engine.clock_s)
+        r = engine.step()
+        if r is not None:
+            stats.append(r.stats)
+        k += 1
+    torch.cuda.synchronize()
+    toks = [engine.sched.sequences[uids[i]].generated
+            for i in range(len(GRAPH_STREAM))]
+    return toks, stats
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sd", ["fp16", "int8", "int4-mixed"])
+def test_graph_matches_eager_at_full_width(cuda, sd):
+    """smollm-135m at full width (30 layers, bf16): one CUDA graph per
+    bucket and the eager step give identical tokens, cluster ids and
+    TokenStats over a stream that walks the bucket ladder up, down and
+    back up; fused_cold_ffn.launches counts 30 per step in both."""
+    out = {}
+    for graphs in (True, False):
+        engine, cfg, traces = _full_width_engine(sd, graphs, ctx_budget=48)
+        ops.fused_cold_ffn.launches = 0
+        toks, stats = _serve_graph_stream(engine, cfg.vocab_size)
+        assert ops.fused_cold_ffn.launches == cfg.num_layers * len(stats)
+        live = engine.decoder._cache
+        assert all((type(fn).__name__ == "GraphedStep") == graphs
+                   for _, fn in live.values())
+        out[graphs] = (toks, [t.tolist() for t in traces], stats)
+        engine.close()
+    assert out[True][0] == out[False][0]
+    assert out[True][1] == out[False][1]
+    assert out[True][2] == out[False][2]
+    b = [s.batch for s in out[True][2]]          # up, down, up again
+    peak = b.index(max(b))
+    low = b.index(min(b[peak:]), peak)
+    assert b[peak] >= 3 and b[low] < b[peak] and max(b[low:]) > b[low]
+
+
+@pytest.mark.gpu
+def test_generate_twice_recaptures_on_a_new_arena(cuda):
+    """generate() at two lengths rebuilds the arena (no ctx_budget), so
+    every graph is dropped and captured again on the new buffers; the
+    tokens stay the eager step's."""
+    res = {}
+    for graphs in (True, False):
+        engine, cfg, _ = _full_width_engine("fp16", graphs)
+        rng = np.random.default_rng(3)
+        outs, arenas = [], []
+        for S, n in ((10, 6), (14, 9), (10, 6)):
+            prompt = rng.integers(0, cfg.vocab_size, (3, S)).astype(np.int32)
+            outs.append(engine.generate(prompt, max_new=n,
+                                        temperature=0.0).tokens.tolist())
+            arenas.append(engine.arena)
+        assert arenas[0] is not arenas[1] is not arenas[2]
+        if graphs:
+            steps = [fn for _, fn in engine.decoder._cache.values()]
+            assert all(fn.captures == 3 for fn in steps), \
+                [fn.captures for fn in steps]
+        res[graphs] = outs
+        engine.close()
+    assert res[True] == res[False]
+
+
+@pytest.mark.gpu
+def test_graph_captured_before_the_library_is_built(cuda):
+    """The first bucket's capture is the process's first use of the
+    kernel library: its warm-up pass loads it outside the capture."""
+    from repro_torch.kernels import build
+    build.library.cache_clear()
+    engine, cfg, _ = _full_width_engine("fp16", True, ctx_budget=32)
+    prompt = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    got = engine.generate(prompt, max_new=5, temperature=0.0).tokens
+    engine.close()
+    engine, _, _ = _full_width_engine("fp16", False, ctx_budget=32)
+    want = engine.generate(prompt, max_new=5, temperature=0.0).tokens
+    engine.close()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_launches_count_per_replay(cuda):
+    """A replay adds the launches its capture recorded; the warm-up pass
+    and the capture itself add none."""
+    engine, cfg, _ = _full_width_engine("int8", True, ctx_budget=32)
+    rng = np.random.default_rng(6)
+    for _ in range(2):
+        engine.submit(rng.integers(0, cfg.vocab_size, 12).astype(np.int32),
+                      max_new=4)
+    counts = []
+    ops.fused_cold_ffn.launches = 0
+    while engine.step() is not None:
+        counts.append(ops.fused_cold_ffn.launches)
+    torch.cuda.synchronize()
+    assert counts == [cfg.num_layers * (i + 1) for i in range(len(counts))]
+    (_, fn), = engine.decoder._cache.values()
+    assert fn.launches["fused_cold_ffn"] == cfg.num_layers
+    assert fn.warmup_launches["fused_cold_ffn"] == cfg.num_layers
+    assert fn.captures == 1
+    engine.close()
+
+
+@pytest.mark.gpu
+def test_prewarm_and_growth_keep_the_eager_tokens(cuda):
+    """A one-request generate() holds a one-slot arena; prewarm grows it
+    to max_slots and captures every bucket on it, and a later batch
+    replays the prewarmed graph; tokens stay the eager step's."""
+    res = {}
+    for graphs in (True, False):
+        engine, cfg, _ = _full_width_engine("fp16", graphs, ctx_budget=32,
+                                            buckets=(1, 2, 4))
+        rng = np.random.default_rng(5)
+        one = rng.integers(0, cfg.vocab_size, (1, 12)).astype(np.int32)
+        outs = [engine.generate(one, max_new=4, temperature=0.0)
+                .tokens.tolist()]
+        assert engine.arena.capacity == 1
+        engine.prewarm()
+        assert engine.arena.capacity == 4
+        steps = [fn for _, fn in engine.decoder._cache.values()]
+        assert len(steps) == 3
+        if graphs:
+            assert all(fn.graph is not None for fn in steps)
+            captured = [fn.captures for fn in steps]
+        three = rng.integers(0, cfg.vocab_size, (3, 12)).astype(np.int32)
+        outs.append(engine.generate(three, max_new=4, temperature=0.0)
+                    .tokens.tolist())
+        if graphs:      # the batch of three replayed bucket 4's graph
+            assert [fn.captures for fn in steps] == captured
+        res[graphs] = outs
+        engine.close()
+    assert res[True] == res[False]

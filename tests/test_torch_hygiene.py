@@ -22,6 +22,7 @@ def test_port_and_smoke_import_no_jax():
         import repro_torch
         names = [m.name for m in pkgutil.walk_packages(
             repro_torch.__path__, "repro_torch.")]
+        assert "repro_torch.checkpoint.ckpt" in names
         for n in names:
             importlib.import_module(n)
         spec = importlib.util.spec_from_file_location(
