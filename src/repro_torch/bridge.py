@@ -5,10 +5,11 @@ JAX package's parameter pytree with every leaf given as a numpy array
 (`load_checkpoint` reads that tree from a checkpoint the reference
 saved):
 {"embed", "out_norm", ["lm_head"], "layers": {"ln1", "ln2", "attn":
-{"wq", "wk", "wv", "wo"}, "ffn": {"w", ["pred": {"A", "B"}], ["wq",
-"wsc", ["wout"]]}}}, layer leaves stacked (L, ...); the FFN's wq/wsc/wout
-are the stored cold bundles of int8 / int4-mixed storage. It reads numpy
-alone. bfloat16 leaves cross over bit for bit through a uint16 view:
+{"wq", "wk", "wv", "wo", ["qk": {"q_norm", "k_norm"}]}, "ffn": {"w",
+["pred": {"A", "B"}], ["wq", "wsc", ["wout"]]}}}, layer leaves stacked
+(L, ...); the qk-norm weights are there when the config sets qk_norm,
+and the FFN's wq/wsc/wout are the stored cold bundles of int8 /
+int4-mixed storage. It reads numpy alone. bfloat16 leaves cross over bit for bit through a uint16 view:
 numpy holds them as ml_dtypes' extension type, or, read back from a
 `.npy` without it, as bare 2-byte voids or their uint16 bits, so a
 leaf's declared dtype (`dtypes`, from a checkpoint's manifest) wins over
@@ -82,6 +83,10 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None,
         load(layer.ln2, "layers", "ln2", layer=l)
         for k in ("wq", "wk", "wv", "wo"):
             load(getattr(layer.attn, k), "layers", "attn", k, layer=l)
+        if cfg.qk_norm:
+            for k in ("q_norm", "k_norm"):
+                load(getattr(layer.attn, k), "layers", "attn", "qk", k,
+                     layer=l)
         load(layer.ffn.w, "layers", "ffn", "w", layer=l)
         N, R, D = layer.ffn.w.shape
         for k, shape in (("wq", (N, R, D)), ("wsc", (N, R)),

@@ -10,6 +10,17 @@ Plan (offline §5) -> permute weights hot-first -> ServeEngine (online
 `--host-dma` prices the slow tier as host DRAM behind DMA instead of UFS
 4.0. On the card each decode bucket runs as one captured CUDA graph.
 
+`--family {dense,vlm}` serves that family's default arch (smollm-135m,
+qwen2-vl-2b) unless `--arch` names another. `--dp N` routes the prompts
+over N replicas on the one device, and `--fleet N` over N complete
+engines behind the fleet gateway (weighted least-loaded dispatch,
+circuit breakers, response LRU, heartbeats); both serve the prompts as
+a request stream (submit / run_until_drained) instead of the
+static-batch generate(), and `--fleet` excludes `--dp`:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --reduced --fleet 2 --bon 8
+
 `--reduced` serves the 2-layer reduced config instead. Latencies the
 driver prints are the storage plane's *modeled* figures; the wall time
 is measured on the device it ran on.
@@ -17,6 +28,7 @@ is measured on the device it ran on.
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 import torch
@@ -36,11 +48,25 @@ def build_engine(arch: str = "smollm-135m", reduced: bool = True,
                  offload: float = 0.5, spec=POWERINFER2, storage=UFS40,
                  seed: int = 0, backend: str = "jnp",
                  storage_dtype: str = "fp16", hw=PHONE, device=None,
-                 **engine_kwargs):
+                 dp: int = 1, **engine_kwargs):
     """Build a serving engine for `arch` on `device` (default `cuda`;
-    raises on a host without a card). Weights are random, from a
-    `torch.Generator` seeded by `seed`; the plan comes from the planner
-    with synthetic frequencies on hardware profile `hw`."""
+    raises on a host without a card), routing over `dp` replicas. Weights
+    are random, from a `torch.Generator` seeded by `seed`; the plan comes
+    from the planner with synthetic frequencies on hardware profile
+    `hw`."""
+    cfg, model, plan = _model_and_plan(arch, reduced, seed, backend,
+                                       storage_dtype, hw, device)
+    if backend != "jnp":
+        engine_kwargs.setdefault("backend", backend)
+    if dp > 1:
+        engine_kwargs.setdefault("dp", dp)
+    return ServeEngine(cfg, model, plan, spec=spec, storage=storage,
+                       offload_ratio=offload, seed=seed,
+                       **engine_kwargs), cfg
+
+
+def _model_and_plan(arch, reduced, seed, backend, storage_dtype, hw,
+                    device):
     device = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
@@ -49,17 +75,50 @@ def build_engine(arch: str = "smollm-135m", reduced: bool = True,
     model = fam.make_model(cfg, device=device, seed=seed)
     plan = fam.build_plan(cfg, hw=hw, backend=backend,
                           storage_dtype=storage_dtype)
-    model = fam.prepare_params(model, plan)
+    return cfg, fam.prepare_params(model, plan), plan
+
+
+def build_fleet(arch: str = "smollm-135m", n: int = 2, reduced: bool = True,
+                offload: float = 0.5, spec=POWERINFER2, storage=UFS40,
+                seed: int = 0, backend: str = "jnp",
+                storage_dtype: str = "fp16", hw=PHONE, device=None,
+                engine_kwargs: dict = None, **gateway_kwargs):
+    """N complete single-device engines behind a FleetGateway, all on
+    `device` (default `cuda`) and serving one model (`local_fleet`).
+    `engine_kwargs` go to every engine, `gateway_kwargs` to the
+    gateway."""
+    from repro_torch.serving.gateway import FleetGateway, local_fleet
+    cfg, model, plan = _model_and_plan(arch, reduced, seed, backend,
+                                       storage_dtype, hw, device)
+    engine_kwargs = dict(engine_kwargs or {})
     if backend != "jnp":
         engine_kwargs.setdefault("backend", backend)
-    return ServeEngine(cfg, model, plan, spec=spec, storage=storage,
-                       offload_ratio=offload, seed=seed,
-                       **engine_kwargs), cfg
+    backends = local_fleet(cfg, model, plan, n, spec=spec,
+                           storage=storage, offload_ratio=offload,
+                           seed=seed, **engine_kwargs)
+    return FleetGateway(backends, **gateway_kwargs), cfg
+
+
+def _serve_stream(target, prompt, max_new):
+    """Submit every prompt at time 0 and drain; (report, wall seconds),
+    the wall synchronized with the device."""
+    t0 = time.perf_counter()
+    for p in prompt:
+        target.submit(p, max_new=max_new, arrival_time=0.0)
+    rep = target.run_until_drained()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return rep, time.perf_counter() - t0
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default=FAMILY_ARCHS["dense"])
+    ap.add_argument("--arch", default=None,
+                    help="architecture id (default: the --family arch)")
+    ap.add_argument("--family", choices=sorted(FAMILY_ARCHS),
+                    default="dense",
+                    help="serving family; picks its default arch unless "
+                         "--arch is given")
     ap.add_argument("--reduced", action="store_true",
                     help="serve the 2-layer reduced config")
     ap.add_argument("--device", default=None,
@@ -82,17 +141,67 @@ def main(argv=None):
     ap.add_argument("--host-dma", action="store_true",
                     help="price the slow tier as host DRAM behind DMA "
                          "instead of UFS 4.0")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel replicas on the one device")
+    ap.add_argument("--fleet", type=int, default=0,
+                    help="serve through the fleet gateway over N complete "
+                         "single-device engines; excludes --dp")
     args = ap.parse_args(argv)
 
+    arch = args.arch or FAMILY_ARCHS[args.family]
     storage = HOST_DMA if args.host_dma else UFS40
-    engine, cfg = build_engine(args.arch, args.reduced, args.offload,
-                               storage=storage, backend=args.backend,
-                               device=args.device,
-                               storage_dtype=args.storage_dtype,
-                               temperature=args.temperature)
-    rng = np.random.default_rng(0)
-    prompt = rng.integers(0, cfg.vocab_size,
-                          (args.bon, args.prompt_len)).astype(np.int32)
+    common = dict(storage=storage, backend=args.backend, device=args.device,
+                  storage_dtype=args.storage_dtype)
+    if args.fleet:
+        if args.dp > 1:
+            ap.error("--fleet members are single-replica engines; --dp "
+                     "doesn't apply")
+        gw, cfg = build_fleet(arch, args.fleet, args.reduced, args.offload,
+                              engine_kwargs=dict(
+                                  temperature=args.temperature), **common)
+        prompt = _prompts(cfg, args)
+        rep, wall = _serve_stream(gw, prompt, args.max_new)
+        miss = rep.ttft_percentiles("miss")
+        print(f"arch={cfg.name} spec=powerinfer-2 storage={storage.name} "
+              f"fleet={args.fleet} backend={args.backend} "
+              f"storage_dtype={args.storage_dtype}")
+        print(f"modeled fleet serve: {rep.throughput_tok_s:.2f} tok/s over "
+              f"the {rep.span_s:.2f}s span | {rep.n_completed}/"
+              f"{rep.n_submitted} completed, {rep.n_rejected} rejected, "
+              f"{rep.n_retries} retries | cache {rep.cache_hits} hit / "
+              f"{rep.cache_misses} miss")
+        print(f"modeled ttft ms (miss): mean {miss['mean']*1e3:.2f} "
+              f"p50 {miss['p50']*1e3:.2f} p90 {miss['p90']*1e3:.2f} "
+              f"p99 {miss['p99']*1e3:.2f} | per-backend "
+              f"{[b['completed'] for b in rep.per_backend]} completed")
+        print(f"wall time {wall:.3f}s for {rep.total_tokens} tokens on "
+              f"{gw.backends[0].handle.engine.device}")
+        gw.close()
+        return
+    engine, cfg = build_engine(arch, args.reduced, args.offload,
+                               dp=args.dp, temperature=args.temperature,
+                               **common)
+    prompt = _prompts(cfg, args)
+    if args.dp > 1:
+        rep, wall = _serve_stream(engine, prompt, args.max_new)
+        pct = rep.latency_percentiles()
+        hit = float(np.mean([s.cache_hit_rate for s in rep.stats]))
+        io = sum(s.io_s for s in rep.stats)
+        eff = sum(s.effective_s for s in rep.stats)
+        print(f"arch={cfg.name} spec=powerinfer-2 storage={storage.name} "
+              f"dp={args.dp} device={engine.device} backend={args.backend} "
+              f"storage_dtype={args.storage_dtype}")
+        print(f"modeled serve: {rep.throughput_tok_s:.2f} tok/s over the "
+              f"{rep.span_s:.2f}s span ({rep.tokens_per_s:.2f} tok/s "
+              f"per-replica pipeline rate) | cache hit {hit:.1%} | "
+              f"I/O share {io/max(eff, 1e-12):.1%}")
+        print(f"modeled ttft ms: mean {float(rep.ttft().mean())*1e3:.2f} | "
+              f"latency ms: p50 {pct['p50']*1e3:.2f} "
+              f"p90 {pct['p90']*1e3:.2f} p99 {pct['p99']*1e3:.2f}")
+        print(f"wall time {wall:.3f}s for {rep.total_tokens} tokens on "
+              f"{engine.device}")
+        engine.close()
+        return
     res = engine.generate(prompt, max_new=args.max_new,
                           temperature=args.temperature)
     if engine.device.type == "cuda":
@@ -112,6 +221,12 @@ def main(argv=None):
     print(f"wall time {res.wall_s:.3f}s for "
           f"{int(np.sum(res.tokens >= 0))} tokens on {engine.device}")
     engine.close()
+
+
+def _prompts(cfg, args):
+    rng = np.random.default_rng(0)
+    return rng.integers(0, cfg.vocab_size,
+                        (args.bon, args.prompt_len)).astype(np.int32)
 
 
 if __name__ == "__main__":

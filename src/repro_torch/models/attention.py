@@ -1,4 +1,5 @@
-"""Attention: RoPE, GQA prefill attention and decode-step attention.
+"""Attention: RoPE / M-RoPE, qk-norm, GQA prefill attention and
+decode-step attention.
 
 Counterpart of `repro/models/attention.py`, plain PyTorch as the
 reference is plain jnp. Shapes: q (B, Sq, H, dh); k/v (B, Skv, KV, dh);
@@ -8,6 +9,8 @@ carries absolute positions.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.models.modules import rms_norm
 
 NEG_INF = -1e30
 
@@ -20,6 +23,22 @@ def rope_angles(positions: torch.Tensor, d_half: int, theta: float):
                         device=positions.device) / d_half
     inv = 1.0 / (theta ** exps)
     return positions[..., None].float() * inv
+
+
+def mrope_angles(positions3: torch.Tensor, sections, theta: float):
+    """M-RoPE (Qwen2-VL, arXiv:2409.12191). positions3 (3, B, S): the
+    temporal / height / width position streams; `sections` splits d_half
+    (e.g. (16, 24, 24)), section i taking stream i with its own slice of
+    the inverse-frequency bank. Returns angles (B, S, d_half), fp32."""
+    d_half = sum(sections)
+    exps = torch.arange(d_half, dtype=torch.float32,
+                        device=positions3.device) / d_half
+    inv = 1.0 / (theta ** exps)
+    chunks, off = [], 0
+    for i, sec in enumerate(sections):
+        chunks.append(positions3[i][..., None].float() * inv[off:off + sec])
+        off += sec
+    return torch.cat(chunks, dim=-1)
 
 
 def apply_rotary(x: torch.Tensor, angles: torch.Tensor):
@@ -36,6 +55,16 @@ def apply_rotary(x: torch.Tensor, angles: torch.Tensor):
                      dim=-1).to(dt)
 
 
+# ------------------------------------------------------------ qk-norm ----
+
+def maybe_qk_norm(q, k, q_norm, k_norm, eps: float):
+    """Per-head RMS norm of q and k over dh with the (1 + w) scale (Qwen3
+    style), when the weights (dh,) are given."""
+    if q_norm is None:
+        return q, k
+    return rms_norm(q, q_norm, eps), rms_norm(k, k_norm, eps)
+
+
 # ------------------------------------------------------ prefill attention ----
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
@@ -43,14 +72,14 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     """Prefill attention with `repro.models.attention.flash_attention`'s
     numerics: fp32 scores, a -1e30 mask, and an online softmax over kv
     chunks of `kv_block` carrying (m, l, acc) in fp32. The reference also
-    chunks q; rows are independent, so all of q runs at once here."""
+    chunks q; rows are independent, so all of q runs at once here. Where
+    the reference requires kv_block to divide Skv, the last chunk here
+    may be shorter (a vlm prefill of 1,024 patches and a few text
+    tokens)."""
     B, Sq, H, dh = q.shape
     _, Skv, KV, _ = k.shape
     G = H // KV
     kb = min(kv_block, Skv)
-    if Skv % kb:
-        raise ValueError(f"kv length {Skv} must be a multiple of the kv "
-                         f"block {kb}")
     scale = dh ** -0.5
     qf = q.reshape(B, Sq, KV, G, dh).float()
     qpos = q_offset + torch.arange(Sq, device=q.device)
@@ -59,12 +88,13 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, KV, G, Sq, dh), dtype=torch.float32,
                       device=q.device)
-    for j in range(Skv // kb):
-        kc = k[:, j * kb:(j + 1) * kb].float()
-        vc = v[:, j * kb:(j + 1) * kb].float()
-        kpos = j * kb + torch.arange(kb, device=q.device)
+    for j0 in range(0, Skv, kb):
+        kc = k[:, j0:j0 + kb].float()
+        vc = v[:, j0:j0 + kb].float()
+        kpos = j0 + torch.arange(kc.shape[1], device=q.device)
         s = torch.einsum("bqkgd,btkd->bkgqt", qf, kc) * scale
-        mask = torch.ones((Sq, kb), dtype=torch.bool, device=q.device)
+        mask = torch.ones((Sq, kc.shape[1]), dtype=torch.bool,
+                          device=q.device)
         if causal:
             mask &= kpos[None, :] <= qpos[:, None]
         if window:

@@ -13,7 +13,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparse_ffn import ffn_apply, ffn_rows
 from repro_torch.models.attention import (
-    apply_rotary, decode_attention, flash_attention)
+    apply_rotary, decode_attention, flash_attention, maybe_qk_norm)
 from repro_torch.models.kv_cache import write_kv
 from repro_torch.models.modules import dense_init
 
@@ -28,14 +28,15 @@ def _param(shape, dtype, device) -> nn.Parameter:
 class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
-        if cfg.qk_norm:
-            raise NotImplementedError(
-                f"{cfg.name}: qk-norm attention is not ported yet")
         h, dh, kv, d = cfg.num_heads, cfg.d_head, cfg.num_kv_heads, cfg.d_model
         self.wq = _param((d, h * dh), dtype, device)
         self.wk = _param((d, kv * dh), dtype, device)
         self.wv = _param((d, kv * dh), dtype, device)
         self.wo = _param((h * dh, d), dtype, device)
+        # qk-norm (Qwen3): per-head (dh,) norm weights, zero at init as
+        # the reference's (the (1 + w) scale makes that the identity)
+        self.q_norm = _param((dh,), dtype, device) if cfg.qk_norm else None
+        self.k_norm = _param((dh,), dtype, device) if cfg.qk_norm else None
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
@@ -51,6 +52,7 @@ def _qkv(p: Attention, x, cfg: ModelConfig, angles):
     q = (x @ p.wq).reshape(B, S, h, dh)
     k = (x @ p.wk).reshape(B, S, kv, dh)
     v = (x @ p.wv).reshape(B, S, kv, dh)
+    q, k = maybe_qk_norm(q, k, p.q_norm, p.k_norm, cfg.norm_eps)
     if angles is not None:
         q = apply_rotary(q, angles)
         k = apply_rotary(k, angles)

@@ -134,31 +134,38 @@ def forward_from_embeds(model: DenseModel, x, angles, *, plan=None,
 # -------------------------------------------------------- prefill/decode ----
 
 @torch.no_grad()
-def prefill(model: DenseModel, tokens, max_len: Optional[int] = None):
-    """Dense prefill of tokens (B, S). Returns (logits (B, 1, V) of the
-    last position, cache padded to `max_len` slots with kv_pos = -1 in the
-    padding)."""
-    cfg = model.cfg
-    B = tokens.shape[0]
-    x = embed_tokens(model, tokens)
-    S = x.shape[1]
-    pos = torch.arange(S, device=x.device)
-    angles = rope_angles(pos, cfg.d_head // 2, cfg.rope_theta)
+def prefill_from_embeds(model: DenseModel, x, angles,
+                        max_len: Optional[int] = None):
+    """Dense prefill of embeddings x (B, S, D) under RoPE `angles`.
+    Returns (logits (B, 1, V) of the last position, cache padded to
+    `max_len` slots with kv_pos = -1 in the padding)."""
+    B, S = x.shape[:2]
     x, kvs = forward_from_embeds(model, x, angles, collect_kv=True)
     T = max_len or S
     cache = model.init_cache(B, T)
     for l, (k, v) in enumerate(kvs):
         cache["k"][l, :, :S] = k
         cache["v"][l, :, :S] = v
-    cache["kv_pos"][:, :S] = pos.to(torch.int32)
+    cache["kv_pos"][:, :S] = torch.arange(S, dtype=torch.int32,
+                                          device=x.device)
     cache["length"].fill_(S)
     return lm_logits(model, x[:, -1:]), cache
 
 
 @torch.no_grad()
+def prefill(model: DenseModel, tokens, max_len: Optional[int] = None):
+    """Dense prefill of tokens (B, S); see `prefill_from_embeds`."""
+    cfg = model.cfg
+    x = embed_tokens(model, tokens)
+    pos = torch.arange(x.shape[1], device=x.device)
+    angles = rope_angles(pos, cfg.d_head // 2, cfg.rope_theta)
+    return prefill_from_embeds(model, x, angles, max_len)
+
+
+@torch.no_grad()
 def decode_step(model: DenseModel, tokens, cache,
                 plan: Optional[HybridPlan] = None, active_mask=None,
-                collect_indices: bool = False):
+                collect_indices: bool = False, angles_fn=None):
     """tokens (B, 1) -> (logits (B, 1, V), cache[, cluster_ids]).
 
     The cache is updated in place, every tensor keeping its storage (a
@@ -166,11 +173,14 @@ def decode_step(model: DenseModel, tokens, cache,
     active_mask (B,) bool:
     live rows for the sparse-FFN batch-union selection; None = all rows
     live. collect_indices=True also returns the per-layer selected cold
-    cluster ids (L, G, kc), the trace the storage plane prices."""
+    cluster ids (L, G, kc), the trace the storage plane prices.
+    angles_fn(pos) gives the RoPE angles (B, 1, dh/2) of the positions
+    pos (B,) (the vlm's M-RoPE); default plain 1-D RoPE."""
     cfg = model.cfg
     pos = cache["length"]                              # (B,)
     x = embed_tokens(model, tokens)
-    angles = rope_angles(pos[:, None], cfg.d_head // 2, cfg.rope_theta)
+    angles = angles_fn(pos) if angles_fn else rope_angles(
+        pos[:, None], cfg.d_head // 2, cfg.rope_theta)
     kv_pos = write_pos(cache["kv_pos"], pos)
     cidxs = []
     for l, layer in enumerate(model.layers):
@@ -194,10 +204,12 @@ def decode_step(model: DenseModel, tokens, cache,
     return logits, cache
 
 
-def make_decode_step(cfg: ModelConfig, collect_indices: bool = False):
+def make_decode_step(cfg: ModelConfig, collect_indices: bool = False,
+                     angles_fn=None):
     """The serving decode callable (model, tokens, cache, plan,
     active_mask) -> (logits, cache[, trace])."""
     def step(model, tokens, cache, plan=None, active_mask=None):
         return decode_step(model, tokens, cache, plan, active_mask,
-                           collect_indices=collect_indices)
+                           collect_indices=collect_indices,
+                           angles_fn=angles_fn)
     return step

@@ -1,7 +1,6 @@
 """PowerInfer-2 serving engine — the thin orchestrator, single device.
 
-Counterpart of `repro/serving/engine.py` at dp=1 with no mesh. Three
-layers:
+Counterpart of `repro/serving/engine.py` with no mesh. Three layers:
 
 * **Data plane** — numerically real: one decode step per batch bucket
   (core/adaptation.BucketedDecoder), on a CUDA card one captured CUDA
@@ -17,10 +16,20 @@ layers:
 
 submit()/step()/run_until_drained() drive requests through the slot
 KV arena; generate() is the static-batch wrapper over the same loop.
+
 The engine runs on the model's device. A step feeds the bucket's graph
 through static device buffers (tokens, live mask, the arena's views) and
 copies its outputs out; sampling and the two host reads (the sampled
 tokens, the trace) stay outside the graph.
+
+Data parallel on one device (`dp=N`): the engine becomes a replica
+router over N ordinary dp=1 engines, the reference's meshless replicas.
+Each has its own scheduler, KV arena, storage plane (a 1/N share of the
+resident neuron cache), generator seeded with the same seed, modeled
+clock and decode steps, its CUDA graphs and their memory pool included:
+a captured graph binds to one engine's arena and buffers. The replicas
+share the model's weights and nothing captured. The step with the
+earliest next event on the shared timeline runs next.
 """
 from __future__ import annotations
 
@@ -42,7 +51,7 @@ from repro_torch.models.kv_cache import KVSlotArena
 from repro_torch.models.modules import dtype_of
 from repro_torch.serving.families import serving_family
 from repro_torch.serving.sampler import sample_tokens
-from repro_torch.serving.scheduler import BatchScheduler
+from repro_torch.serving.scheduler import BatchScheduler, ReplicaRouter
 from repro_torch.serving.storage_plane import StoragePlane, TimingProfile, \
     TokenStats
 
@@ -83,7 +92,8 @@ class StepResult:
     tokens: dict                       # uid -> generated token
     admitted: list = field(default_factory=list)
     finished: list = field(default_factory=list)
-    t_s: float = 0.0                   # modeled clock after the step
+    replica: int = 0                   # the replica that stepped
+    t_s: float = 0.0                   # that replica's clock after the step
 
 
 @dataclass
@@ -127,13 +137,16 @@ class ServeReport:
 
 
 class ServeEngine:
-    """Single-device continuous-batching engine for the dense family.
+    """Single-device continuous-batching engine for the dense and vlm
+    families.
 
     `model` is the port's DenseModel (its weights already permuted
     hot-first to match `plan`); the engine runs on its device.
     `cuda_graphs`: None captures each bucket's decode step in a CUDA
     graph on a CUDA device and runs it eagerly on the CPU; False runs it
-    eagerly on either; True on the CPU raises."""
+    eagerly on either; True on the CPU raises. `dp` > 1 routes requests
+    over that many replicas (module docstring); `n_replicas` is the
+    replica count a replica's storage plane divides its cache by."""
 
     def __init__(self, cfg: ModelConfig, model, plan: ExecutionPlan,
                  spec: SystemSpec = POWERINFER2,
@@ -149,7 +162,9 @@ class ServeEngine:
                  temperature: float = 0.8,
                  prefetch: bool = True,
                  backend: str = None,
-                 cuda_graphs: Optional[bool] = None):
+                 cuda_graphs: Optional[bool] = None,
+                 dp: int = None,
+                 n_replicas: int = 1):
         self.family = serving_family(cfg)
         if backend not in (None, "jnp", "pallas"):
             raise ValueError(f"unknown cold-path backend {backend!r}; "
@@ -160,6 +175,28 @@ class ServeEngine:
         self.spec = spec
         self.model = model
         self.device = model.device
+        self.replicas = self.router = None
+        n_data = 1 if dp is None else int(dp)
+        if n_data < 1:
+            raise ValueError(f"dp={dp}: at least one replica")
+        if n_data > 1:
+            self.replicas = [
+                ServeEngine(cfg, model, plan, spec=spec, storage=storage,
+                            offload_ratio=offload_ratio, hw=hw,
+                            timing=timing,
+                            n_compute_workers=n_compute_workers, seed=seed,
+                            buckets=buckets, ctx_budget=ctx_budget,
+                            eos_id=eos_id, temperature=temperature,
+                            prefetch=prefetch, backend=backend,
+                            cuda_graphs=cuda_graphs, n_replicas=n_data)
+                for _ in range(n_data)]
+            self.router = ReplicaRouter([r.sched for r in self.replicas])
+            self.sched = self.router
+            self.cuda_graphs = self.replicas[0].cuda_graphs
+            self.arena = self.decoder = self.storage = None
+            self.ctx_budget = ctx_budget
+            self.clock_s = 0.0             # max over replica clocks
+            return
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         on_cuda = self.device.type == "cuda"
         if cuda_graphs and not on_cuda:
@@ -183,7 +220,8 @@ class ServeEngine:
         self.storage = StoragePlane(
             cfg, model, plan, spec=spec, storage=storage,
             offload_ratio=offload_ratio, hw=hw, timing=timing,
-            n_compute_workers=n_compute_workers, prefetch=prefetch)
+            n_compute_workers=n_compute_workers, prefetch=prefetch,
+            n_replicas=n_replicas)
 
         # ---- scheduler + KV slots ----
         self.sched = BatchScheduler(eos_id=eos_id)
@@ -202,41 +240,55 @@ class ServeEngine:
 
     def close(self):
         """Release the storage plane's I/O thread (also runs at GC) and
-        the captured graphs."""
+        the captured graphs, of every replica."""
+        if self.replicas is not None:
+            for r in self.replicas:
+                r.close()
+            return
         self.decoder.drop_graphs()
         self.storage.close()
 
     # ----------------------------------------------- storage plane view ----
+    # a replica-routed engine shows replica 0's (all are configured alike)
+    @property
+    def _plane_owner(self):
+        return self.replicas[0] if self.replicas is not None else self
+
     @property
     def cache(self):
-        return self.storage.cache
+        return self._plane_owner.storage.cache
 
     @property
     def coldstore(self):
-        return self.storage.coldstore
+        return self._plane_owner.storage.coldstore
 
     @property
     def timing(self):
-        return self.storage.timing
+        return self._plane_owner.storage.timing
 
     @property
     def hw(self):
-        return self.storage.hw
+        return self._plane_owner.storage.hw
 
     @property
     def max_slots(self) -> int:
-        return self.decoder.buckets[-1]
+        return self._plane_owner.decoder.buckets[-1]
 
     # --------------------------------------------------- load reporting ----
     @property
     def load(self) -> int:
-        """Outstanding requests (queued + running)."""
+        """Outstanding requests (queued + running), over every replica."""
         return self.sched.load
 
     def next_event_time(self) -> Optional[float]:
         """When this engine's next decode event completes work on the
         modeled clock: its clock while a batch is running, else the head
-        arrival it would jump to; None when drained."""
+        arrival it would jump to; None when drained. A replica-routed
+        engine reports its earliest replica's (the one `step` runs)."""
+        if self.replicas is not None:
+            times = [t for t in (r.next_event_time() for r in self.replicas)
+                     if t is not None]
+            return min(times, default=None)
         if not self.sched.has_work:
             return None
         if self.sched.running:
@@ -247,7 +299,17 @@ class ServeEngine:
     # ------------------------------------------------------- admission ----
     def submit(self, prompt, max_new: int = 32,
                arrival_time: float = None) -> int:
-        """Enqueue one request (prompt: (S,) token ids). Returns uid."""
+        """Enqueue one request (prompt: (S,) token ids). Returns uid.
+
+        A replica-routed engine picks the least-loaded replica (FIFO
+        tiebreak) and returns a router-global uid; a request arrives by
+        default at the shared clock (the latest replica's)."""
+        if self.replicas is not None:
+            r = self.router.pick_replica()
+            local = self.replicas[r].submit(
+                prompt, max_new,
+                self.clock_s if arrival_time is None else arrival_time)
+            return self.router.bind(r, local)
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.shape[0] == 0:
             raise ValueError("empty prompt: at least one token required")
@@ -312,8 +374,13 @@ class ServeEngine:
 
     def prewarm(self):
         """Build every bucket's decode step now and, on a graphed engine,
-        capture each one, on an arena grown to max_slots rows. The arena
-        comes from the first step: serve one first."""
+        capture each one, on an arena grown to max_slots rows, in every
+        replica. The arena comes from the first step: serve one first (on
+        each replica)."""
+        if self.replicas is not None:
+            for r in self.replicas:
+                r.prewarm()
+            return
         if self.arena is None:
             raise RuntimeError("no KV arena yet: serve a step first")
         if self.arena.capacity < self.max_slots:
@@ -358,10 +425,46 @@ class ServeEngine:
                 self._last[slot] = logits[j, -1]
 
     # ------------------------------------------------------ decode loop ----
+    def _next_replica(self) -> Optional[int]:
+        """The replica with work whose next event is earliest: its clock,
+        or the head arrival it would jump to when idle (ties -> lowest
+        index)."""
+        best, best_t = None, None
+        for i, rep in enumerate(self.replicas):
+            if not rep.sched.has_work:
+                continue
+            t = rep.clock_s
+            if not rep.sched.running:
+                nxt = rep.sched.next_arrival()
+                if nxt is not None and nxt > t:
+                    t = nxt
+            if best is None or t < best_t:
+                best, best_t = i, t
+        return best
+
     @torch.no_grad()
     def step(self) -> Optional[StepResult]:
         """One continuous-batching step: admit -> (resize at bucket
-        boundary) -> sample+decode -> price -> complete."""
+        boundary) -> sample+decode -> price -> complete. A replica-routed
+        engine steps the replica whose next event is earliest."""
+        if self.replicas is not None:
+            i = self._next_replica()
+            if i is None:
+                return None
+            rep = self.replicas[i]
+            r = rep.step()
+            if r is None:
+                return None
+            self.clock_s = max(e.clock_s for e in self.replicas)
+            self.router.batch_history.append(self.router.batch_size)
+            r.stats.replica = i
+            g = self.router.to_global
+            return StepResult(
+                stats=r.stats,
+                tokens={g(i, u): t for u, t in r.tokens.items()},
+                admitted=[g(i, u) for u in r.admitted],
+                finished=[g(i, u) for u in r.finished],
+                replica=i, t_s=rep.clock_s)
         sched = self.sched
         if not sched.has_work:
             return None
@@ -433,7 +536,17 @@ class ServeEngine:
     def cancel(self, uids):
         """Force-finish requests. Running requests release their KV slot
         immediately; still-queued requests are dequeued, finish with no
-        tokens and keep `first_token_time` None."""
+        tokens and keep `first_token_time` None. A replica-routed engine
+        cancels on the owning replica."""
+        if self.replicas is not None:
+            for uid in list(uids):
+                r, local = self.router.locate(uid)
+                was_running = local in self.replicas[r].sched.running
+                self.replicas[r].cancel([local])
+                if was_running:      # a decay event on the merged timeline
+                    self.router.batch_history.append(
+                        self.router.batch_size)
+            return
         for uid in list(uids):
             if uid in self.sched.running:
                 self.sched.finish(uid, self.clock_s)
@@ -443,7 +556,25 @@ class ServeEngine:
 
     def run_until_drained(self, max_steps: int = 100000) -> ServeReport:
         """Step until queue and batch are empty. The report covers every
-        request finished so far."""
+        request finished so far.
+
+        A replica-routed engine merges every replica's TokenStats onto
+        the shared timeline (by each step's completion time, then
+        replica) and reports the drained makespan as `span_s`; requests
+        come back in global-uid order."""
+        if self.replicas is not None:
+            log = []
+            for _ in range(max_steps):
+                r = self.step()
+                if r is None:
+                    break
+                log.append((r.t_s, r.replica, r.stats))
+            log.sort(key=lambda e: (e[0], e[1]))
+            reqs = [self.router.request(u) for u in self.router.assignment]
+            return ServeReport(
+                stats=[s for _, _, s in log],
+                requests=[q for q in reqs if q.finished],
+                span_s=max(r.clock_s for r in self.replicas))
         stats = []
         for _ in range(max_steps):
             r = self.step()
@@ -471,6 +602,10 @@ class ServeEngine:
         token for this call (None: no EOS)."""
         prompt = np.asarray(prompt_tokens)
         B, S = prompt.shape
+        if self.replicas is not None:
+            raise ValueError(
+                "generate() is the static-batch path; a replica-routed "
+                "engine serves via submit()/run_until_drained()")
         if self.sched.has_work:
             raise RuntimeError("generate() requires an idle engine (drain "
                                "submitted work first)")

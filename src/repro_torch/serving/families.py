@@ -15,8 +15,11 @@ Every family the engine can serve is one `ServingFamily` entry keyed on
   place: the hot-first neuron permutation, then the cold bundles'
   quantization to the plan's storage dtype.
 
-The port serves the dense family so far; vlm and moe come in later
-slices.
+The `vlm` entry serves the LM backbone through the dense data plane, as
+the reference's does: engine prompts are token streams, decoded with
+plain 1-D RoPE (the M-RoPE model is `models/vlm.py`). moe comes in a
+later slice; its configs, and those of the ssm, hybrid and encdec
+families, raise here.
 """
 from __future__ import annotations
 
@@ -95,3 +98,4 @@ def _dense_family(name: str, arch: str) -> ServingFamily:
 
 
 register_family(_dense_family("dense", "smollm-135m"))
+register_family(_dense_family("vlm", "qwen2-vl-2b"))

@@ -17,8 +17,8 @@ orchestrator (serving/engine.py) never touches cache/coldstore
 internals.
 
 This is the port's copy of `repro/serving/storage_plane.py`, its logic
-unchanged, cut to the dense family's storage view (`FFNStorageView`:
-the flat neuron space, the bundled weight tensors, the trace ->
+unchanged, cut to the dense and vlm families' storage view
+(`FFNStorageView`: the flat neuron space, the bundled weight tensors, the trace ->
 neuron-id mapping and shard ownership); bundles are read from the
 port's model as numpy arrays. The MoE view comes with the moe family.
 """
@@ -117,7 +117,7 @@ class FFNStorageView:
         return owner
 
 
-_VIEW_FAMILIES = {"dense": FFNStorageView}
+_VIEW_FAMILIES = {"dense": FFNStorageView, "vlm": FFNStorageView}
 
 
 def make_storage_view(cfg):

@@ -117,6 +117,22 @@ def test_fused_cold_ffn_matches_plain(cuda, case):
     _check(x, wc, A, Bp, None, act, mode, kc)
 
 
+# the cold paths of the paper's widths, as the planner sizes them on the
+# PHONE profile: qwen2-vl-2b (D 1536, 69 cold clusters of 128, kc 1),
+# bamboo-7b (D 4096, 111, kc 2) and qwen3-14b (D 5120, 135, kc 2)
+WIDE = [(1536, 69, 1), (4096, 111, 2), (5120, 135, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 4, 32])
+@pytest.mark.parametrize("act,mode", [("relu2", "relu"), ("silu", "cats")])
+@pytest.mark.parametrize("D,nc_g,kc", WIDE, ids=lambda v: str(v))
+def test_fused_cold_ffn_at_model_widths(cuda, D, nc_g, kc, act, mode, B):
+    x, wc, A, Bp = _inputs(B, D, 64, 128, 1, nc_g, 3, torch.bfloat16, cuda,
+                           seed=D + B)
+    _check(x, wc, A, Bp, None, act, mode, kc)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dead", ["some", "all"])
 def test_fused_cold_ffn_dead_rows(cuda, dead):
@@ -617,3 +633,47 @@ def test_prewarm_and_growth_keep_the_eager_tokens(cuda):
         res[graphs] = outs
         engine.close()
     assert res[True] == res[False]
+
+
+@pytest.mark.gpu
+def test_dp2_graph_matches_eager_at_full_width(cuda):
+    """ServeEngine(dp=2) at full width (smollm-135m, 30 layers, bf16):
+    each replica captures its own graphs over its own buffers and pool,
+    and the graphed run gives the eager run's tokens, routing, cluster
+    ids and TokenStats; 30 launches per replica step in both."""
+    from repro_torch.launch.serve import build_engine
+    out = {}
+    for graphs in (True, False):
+        engine, cfg = build_engine("smollm-135m", reduced=False,
+                                   backend="pallas", temperature=0.0,
+                                   ctx_budget=48, dp=2,
+                                   cuda_graphs=None if graphs else False)
+        traces = []
+        for rep in engine.replicas:
+            price = rep.storage.step
+
+            def record(trace, *a, price=price, **k):
+                traces.append(np.array(trace).tolist())
+                return price(trace, *a, **k)
+            rep.storage.step = record
+        rng = np.random.default_rng(12)
+        uids = [engine.submit(rng.integers(0, cfg.vocab_size, n)
+                              .astype(np.int32), max_new=m,
+                              arrival_time=t)
+                for n, m, t in ((12, 8, 0.0), (16, 6, 0.0), (12, 5, 1e-3),
+                                (20, 7, 2e-3), (14, 4, 3e-3))]
+        ops.fused_cold_ffn.launches = 0
+        rep = engine.run_until_drained()
+        torch.cuda.synchronize()
+        assert ops.fused_cold_ffn.launches == cfg.num_layers * len(rep.stats)
+        if graphs:
+            a, b = ({p for _, fn in r.decoder._cache.values()
+                     for p, _ in fn._bound} for r in engine.replicas)
+            assert a and b and not a & b
+            assert engine.replicas[0].decoder._pool is not \
+                engine.replicas[1].decoder._pool
+        out[graphs] = ([engine.sched.sequences[u].generated for u in uids],
+                       dict(engine.router.assignment), traces, rep.stats)
+        engine.close()
+    assert out[True] == out[False]
+    assert {r for r, _ in out[True][1].values()} == {0, 1}

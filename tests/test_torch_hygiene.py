@@ -23,6 +23,10 @@ def test_port_and_smoke_import_no_jax():
         names = [m.name for m in pkgutil.walk_packages(
             repro_torch.__path__, "repro_torch.")]
         assert "repro_torch.checkpoint.ckpt" in names
+        assert {{"repro_torch.serving.gateway", "repro_torch.models.vlm",
+                 "repro_torch.configs.paper_models",
+                 "repro_torch.configs.qwen3_14b",
+                 "repro_torch.configs.qwen2_vl_2b"}} <= set(names)
         for n in names:
             importlib.import_module(n)
         spec = importlib.util.spec_from_file_location(
