@@ -80,6 +80,18 @@ without printing a result:
             1,024 patch embeddings and 16 text tokens, 8 decode steps
             under the kernel and under the plain chain: finite logits,
             28 launches per step, identical ids but for near ties;
+   moe    — the moe family at full width, bf16, no kernel on its path:
+            deepseek-moe-16b (whole experts, cut to 8 of 28 layers) at
+            fp16 and int8 storage and turbosparse-mixtral-47b (relu
+            mode, cut to 4 of 32 layers) on the PHONE plan and on a
+            two-level plan (a 100 ms prefetch window: n_expert_hot 128,
+            the (L, E, 1+ncc) trace) serve phase 4's stream graphed and
+            eagerly: tokens, traces and TokenStats identical, no
+            fused_cold_ffn launch; wall, device busy, replay span,
+            kernels, storage plane ms per step and peak memory; layer
+            0's apply_moe_ffn in fp32 on the card against the CPU at B
+            1/4/32 and 64 rows past capacity, dead rows included; a
+            pallas engine on a moe config raises;
 7. summary — a JSON line of every kernel, then {"ok": true, ...}.
 
 `--only` runs the card and build phases and then the named ones, and
@@ -940,12 +952,13 @@ def free_cuda():
     torch.cuda.empty_cache()
 
 
-def prepared(cfg, backend="pallas", sd="fp16", make_model=None):
+def prepared(cfg, backend="pallas", sd="fp16", make_model=None, hw=PHONE):
     """The family's model on the card (seed 0), its plan on the PHONE
-    profile and the prepared weights, as build_engine makes them."""
+    profile (or `hw`) and the prepared weights, as build_engine makes
+    them."""
     fam = serving_family(cfg)
     model = (make_model or fam.make_model)(cfg, device="cuda", seed=0)
-    plan = fam.build_plan(cfg, hw=PHONE, backend=backend, storage_dtype=sd)
+    plan = fam.build_plan(cfg, hw=hw, backend=backend, storage_dtype=sd)
     return fam.prepare_params(model, plan), plan
 
 
@@ -1299,37 +1312,47 @@ def arch_cfg(arch, layers):
     return cfg if layers is None else cfg.replace(num_layers=layers)
 
 
-def arch_serve(cfg, model, plan, graphs, spy=None):
+def arch_serve(cfg, model, plan, graphs, spy=None, backend="pallas",
+               profile_new=5):
     """Phase 4's stream through one engine (graphed or eager), then a
     profile; the launch count is set to 0 before the stream and read
-    after. `spy` replaces the FFN blocks' ffn_apply during the stream."""
-    from repro_torch.models import blocks
+    after. `spy` = (module, name, function) replaces that module's
+    function during the stream. Under "pallas" every layer launches
+    fused_cold_ffn once per step (four kernels in the profile); the moe
+    family's plain path ("jnp") launches it never."""
     free_cuda()                 # the previous engine's pools and buffers
-    engine = ServeEngine(cfg, model, plan, backend="pallas", temperature=0.0,
+    engine = ServeEngine(cfg, model, plan, backend=backend, temperature=0.0,
                          seed=0, ctx_budget=CTX,
                          cuda_graphs=None if graphs else False)
-    traces, price = [], engine.storage.step
+    traces, plane, price = [], [], engine.storage.step
 
     def record(trace, *a, **k):
         traces.append(np.array(trace).tolist())
-        return price(trace, *a, **k)
+        t0 = time.perf_counter()
+        out = price(trace, *a, **k)
+        plane.append(time.perf_counter() - t0)
+        return out
     engine.storage.step = record
-    inner = blocks.ffn_apply
     torch.cuda.reset_peak_memory_stats()
     ops.fused_cold_ffn.launches = 0
     if spy is not None:
-        blocks.ffn_apply = spy
+        mod, name, fn = spy
+        inner = getattr(mod, name)
+        setattr(mod, name, fn)
     try:
         toks, stats, walls = serve_stream(engine, cfg.vocab_size)
     finally:
-        blocks.ffn_apply = inner
+        if spy is not None:
+            setattr(mod, name, inner)
     launches = ops.fused_cold_ffn.launches
     peak = torch.cuda.max_memory_allocated()
-    if launches != cfg.num_layers * len(stats):
+    per_step = cfg.num_layers if backend == "pallas" else 0
+    if launches != per_step * len(stats):
         raise AssertionError(f"{cfg.name}: {launches} launches for "
-                             f"{len(stats)} steps of {cfg.num_layers} layers")
-    prof = profile_steps(engine, cfg.vocab_size)
-    want = len(SUBKERNELS) * cfg.num_layers
+                             f"{len(stats)} steps of {cfg.num_layers} "
+                             f"layers under {backend!r}")
+    prof = profile_steps(engine, cfg.vocab_size, n_new=profile_new)
+    want = len(SUBKERNELS) * per_step
     if prof.get("cold_kernels_per_step") != want:
         raise AssertionError(f"{cfg.name}: the profiler saw "
                              f"{prof.get('cold_kernels_per_step')} "
@@ -1338,7 +1361,8 @@ def arch_serve(cfg, model, plan, graphs, spy=None):
     w = np.array(walls) * 1e3
     return dict(outputs=(toks, traces, stats), launches=launches,
                 steps=len(stats), wall_ms_median=float(np.median(w)),
-                wall_ms_first=float(w[0]), peak_bytes=peak, profile=prof)
+                wall_ms_first=float(w[0]), peak_bytes=peak, profile=prof,
+                plane_ms=float(np.mean(plane) * 1e3))
 
 
 def layer_operands(model, p, l=0):
@@ -1411,7 +1435,8 @@ def phase_archs():
                 xs.append(x.detach().reshape(-1, x.shape[-1]).clone())
             return inner(w, pred, x, *a, **k)
         runs = {"graph": arch_serve(cfg, model, plan, True),
-                "eager": arch_serve(cfg, model, plan, False, spy)}
+                "eager": arch_serve(cfg, model, plan, False,
+                                    (blocks, "ffn_apply", spy))}
         g, e = runs["graph"], runs["eager"]
         for name, a, b in zip(("tokens", "traces", "TokenStats"),
                               g["outputs"], e["outputs"]):
@@ -1430,7 +1455,8 @@ def phase_archs():
             dev_s = "not measured" if dev is None else f"{dev:.3f} ms"
             print(f"  {name}: wall per step median {r['wall_ms_median']:.2f} "
                   f"ms (first {r['wall_ms_first']:.2f}); device busy per "
-                  f"step {dev_s}; peak device memory "
+                  f"step {dev_s}; storage plane {r['plane_ms']:.2f} ms per "
+                  f"step (host); peak device memory "
                   f"{r['peak_bytes'] / 2**20:.1f} MiB")
         rows = torch.cat(xs)
         if rows.shape[0] < max(ARCH_BATCHES):
@@ -1439,7 +1465,8 @@ def phase_archs():
         out[arch] = dict(
             layers=cfg.num_layers, launches=g["launches"], steps=g["steps"],
             kernels=kt, **{f"{k}_{m}": runs[m][k] for m in runs
-                           for k in ("wall_ms_median", "peak_bytes")},
+                           for k in ("wall_ms_median", "peak_bytes",
+                                     "plane_ms")},
             device_ms_per_step={m: runs[m]["profile"].get(
                 "device_ms_per_step") for m in runs})
         del model, rows, xs, w0
@@ -1579,8 +1606,247 @@ def phase_vlm():
                 pairs=len(pairs), near_same_x=near_same_x,
                 fp32_near=near32, launches_fp32=launches32)
 
+# --------------------------------------------------------- phase moe ----
+
+# PHONE's prefetch window (2 ms at 4 GB/s) holds 325 bundles of D 4096,
+# fewer than turbosparse-mixtral-47b's shared expert (14,336 rows): its
+# two-level plan then has no per-expert hot prefix and its trace is
+# (L, E). This window of 100 ms holds the shared expert and one 128-row
+# cluster per routed expert (n_expert_hot 128): the (L, E, 1+ncc) trace.
+WINDOW = dataclasses.replace(PHONE, name="snapdragon-8gen3, 100 ms window",
+                             attn_time_s=0.1)
+# (arch, layers kept, (storage dtype, hardware profile) served): the
+# paper's widths, cut in depth to fit the script's time limit
+MOE = (("deepseek-moe-16b", 8, (("fp16", PHONE), ("int8", PHONE))),
+       ("turbosparse-mixtral-47b", 4, (("fp16", PHONE), ("fp16", WINDOW))))
+MOE_BATCHES = (1, 4, 32)
+MOE_OVERFLOW = 64          # rows of the capacity-overflow case
+MOE_NEAR = 1e-4            # |g| of an fp64 recompute within a flip
+
+
+def moe_weights_bytes(cfg) -> int:
+    """Bytes of expert weights (routed and shared) one decode step reads:
+    the expert GEMMs run densely over every expert's capacity buffer."""
+    R = 2 if cfg.activation == "gelu" else 3
+    n = (cfg.num_experts + cfg.num_shared_experts) * cfg.d_ff
+    return cfg.num_layers * n * R * cfg.d_model * 2
+
+
+def moe_copy(cfg, moe, device):
+    """An fp32 MoEFFN on `device` holding `moe`'s weights."""
+    from repro_torch.models.moe import MoEFFN
+    out = MoEFFN(cfg, torch.float32, device)
+    with torch.no_grad():
+        for name, p in out.named_parameters():
+            p.copy_(getattr(moe, name).float())
+    return out
+
+
+def moe_near_flips(cfg, moe, x, active, C, p):
+    """(E, ncc) count of the cold (slot, neuron) activations of occupied
+    capacity slots whose gate pre-activation g, recomputed in fp64 on the
+    CPU from the dispatch buffer, lies within MOE_NEAR of relu's
+    threshold 0: the entries two fp32 summation orders may count
+    differently (an empty slot's g is exactly 0 on both)."""
+    from repro_torch.models import moe as moe_mod
+    if cfg.sparse_ffn.mode != "relu":
+        raise ValueError("near-threshold counts are for relu mode")
+    buf, (slot, keep, _), *_ = moe_mod._dispatch_group(x, moe.router, cfg,
+                                                      C, active)
+    E = buf.shape[0]
+    occ = torch.zeros(E * C, dtype=torch.bool)
+    occ[slot[keep].long()] = True
+    wg = moe.experts[:, :, 0].double()                  # (E, f, D)
+    g = torch.bmm(buf.double(), wg.transpose(1, 2))     # (E, C, f)
+    near = ((g.abs() <= MOE_NEAR)
+            & occ.reshape(E, C, 1)).sum(dim=1)          # (E, f)
+    n_hot_e, cs = p.n_expert_hot, p.cluster_size
+    ncc = (cfg.d_ff - n_hot_e) // cs
+    return near[:, n_hot_e:].reshape(-1, ncc, cs).sum(dim=-1)
+
+
+def moe_layer_check(cfg, model, plan, xs):
+    """apply_moe_ffn on layer 0 in fp32, on the card and on the CPU, on
+    the same weights and rows of x recorded from the serve: B 1, 4 and
+    32, then MOE_OVERFLOW rows whose first three quarters repeat one row
+    (every copy routes to the same experts, past their capacity); every
+    third row dead. tope, slot, keep and the expert counts identical, the
+    two-level (relu-mode) cold counts identical but for activations whose
+    fp64 g lies within MOE_NEAR of 0; y within 2e-4 of its own scale
+    (max |y_card - y_cpu| / max |y_cpu|: the reference init gives outputs
+    of order 1e3 to 1e4 at unit-rms x)."""
+    from repro_torch.models import moe as moe_mod
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    dev = moe_copy(cfg32, model.layers[0].moe, "cuda")
+    cpu = moe_copy(cfg32, model.layers[0].moe, "cpu")
+    rows = xs.float()
+    over = torch.cat([rows[:1].expand(3 * MOE_OVERFLOW // 4, -1),
+                      rows[1:MOE_OVERFLOW // 4 + 1]])
+    E, k = cfg.num_experts, cfg.experts_per_token
+    out, flips = {}, 0
+    for name, x in [(f"B={b}", rows[:b]) for b in MOE_BATCHES] + \
+            [(f"overflow T={MOE_OVERFLOW}", over)]:
+        T = x.shape[0]
+        active = torch.arange(T) % 3 != 2
+        C = moe_mod._capacity(T, k, E, cfg.moe_capacity_factor)
+        p = plan.plan_for_batch(T)
+        got = {}
+        for where, moe in (("cuda", dev), ("cpu", cpu)):
+            xd, ad = x.to(where), active.to(where)
+            gates = torch.softmax(xd @ moe.router, dim=-1)
+            disp = moe_mod.moe_dispatch(gates, k, C, ad)
+            y, _, tr = moe_mod.apply_moe_ffn(moe, xd, cfg32, plan=p,
+                                             active_mask=ad,
+                                             collect_trace=True)
+            got[where] = [t.cpu() for t in (*disp, y, tr)]
+        (te, _, sl, kp, y, tr), (te0, _, sl0, kp0, y0, tr0) = \
+            got["cuda"], got["cpu"]
+        for what, a, b in (("tope", te, te0), ("slot", sl, sl0),
+                           ("keep", kp, kp0)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{cfg.name} {name}: {what} differs "
+                                     f"between the card and the CPU")
+        if name.startswith("overflow") and bool(kp0.all()):
+            raise AssertionError(f"{cfg.name} {name}: no entry dropped")
+        if tr.dim() == 1:
+            same = torch.equal(tr, tr0)
+            n_flip = 0
+        else:
+            near = moe_near_flips(cfg32, cpu, x.cpu(), active, C, p)
+            diff = (tr[:, 1:] - tr0[:, 1:]).abs()
+            same = torch.equal(tr[:, 0], tr0[:, 0]) and bool(
+                (diff <= near).all())
+            n_flip = int(diff.sum())
+        if not same:
+            raise AssertionError(f"{cfg.name} {name}: traces differ "
+                                 f"beyond near-threshold activations")
+        scale = float(y0.abs().max())
+        err = float((y - y0).abs().max())
+        if err > 2e-4 * scale:
+            raise AssertionError(f"{cfg.name} {name}: max |y diff| {err:.3e}"
+                                 f" at output scale {scale:.3e}")
+        flips += n_flip
+        out[name] = dict(T=T, C=C, dropped=int((~kp0).sum()),
+                         max_abs_err=err, scale=scale, near_flips=n_flip)
+        print(f"    layer 0 {name}: C {C}, {out[name]['dropped']} entries "
+              f"not kept, {int((~active).sum())} dead rows; tope/slot/keep "
+              f"and trace {tuple(tr.shape)} identical"
+              + (f" but {n_flip} near-threshold counts" if n_flip else "")
+              + f"; max |y diff| {err:.3e} at scale {scale:.3e}")
+    del dev, cpu
+    free_cuda()
+    return out
+
+
+def moe_serve_pair(cfg, sd, hw):
+    """The model of `cfg` at storage dtype `sd`, on the planner's plan
+    under profile `hw`, serving phase 4's stream graphed and eagerly
+    (the eager run records layer 0's MoE input). Returns (model, plan,
+    runs, recorded rows of x)."""
+    from repro_torch.models import moe as moe_mod
+    free_cuda()
+    t0 = time.perf_counter()
+    model, plan = prepared(cfg, backend="jnp", sd=sd, hw=hw)
+    torch.cuda.synchronize()
+    p1 = plan.plan_for_batch(1)
+    print(f"  {sd}, {hw.name}: model built and prepared in "
+          f"{time.perf_counter() - t0:.1f} s; plan at B=1: n_hot {p1.n_hot}, "
+          f"k_cold {p1.k_cold}, cluster size {p1.cluster_size}, "
+          f"n_expert_hot {p1.n_expert_hot}")
+    xs, inner, moe0 = [], moe_mod.apply_moe_ffn, model.layers[0].moe
+
+    def spy(moe, x, *a, **k):              # layer 0's MoE input
+        if moe is moe0:
+            xs.append(x.detach().reshape(-1, x.shape[-1]).clone())
+        return inner(moe, x, *a, **k)
+    runs = {"graph": arch_serve(cfg, model, plan, True, backend="jnp",
+                                profile_new=3),
+            "eager": arch_serve(cfg, model, plan, False,
+                                (moe_mod, "apply_moe_ffn", spy),
+                                backend="jnp", profile_new=3)}
+    g, e = runs["graph"], runs["eager"]
+    for name, a, b in zip(("tokens", "traces", "TokenStats"),
+                          g["outputs"], e["outputs"]):
+        if a != b:
+            raise AssertionError(f"{cfg.name} {sd}: graphed and eager "
+                                 f"{name} differ")
+    shape = np.array(g["outputs"][1][0]).shape
+    print(f"  {sd}: graphed and eager: tokens, {g['steps']} per-step traces "
+          f"{shape} and every TokenStats field identical; fused_cold_ffn "
+          f"launches {g['launches']} in both")
+    for name, r in runs.items():
+        p = r["profile"]
+        dev = p.get("device_ms_per_step")
+        rep = p.get("replay_ms_per_step")
+        print(f"    {name}: wall per step median {r['wall_ms_median']:.2f} ms "
+              f"(first {r['wall_ms_first']:.2f}); device busy per step "
+              + ("not measured" if dev is None else f"{dev:.3f} ms")
+              + ("" if rep is None else f", replay span {rep:.3f} ms")
+              + f"; {p.get('kernels_per_step', 0):.0f} kernels per step; "
+              f"storage plane {r['plane_ms']:.2f} ms per step (host); peak "
+              f"device memory {r['peak_bytes'] / 2**30:.2f} GiB")
+    return model, plan, runs, torch.cat(xs)
+
+
+def phase_moe():
+    """The moe family at full width, bf16, random weights from seed 0, on
+    the planner's plan under the PHONE profile: deepseek-moe-16b (whole
+    experts, 8 of 28 layers) at fp16 and int8 storage, and
+    turbosparse-mixtral-47b (two-level, relu mode, 4 of 32 layers). Each
+    serves phase 4's stream graphed and eagerly (tokens, traces and
+    TokenStats identical, no fused_cold_ffn launch), then layer 0's
+    apply_moe_ffn runs in fp32 on the card against the CPU; a pallas
+    engine on a moe config raises before any step."""
+    out = {}
+    for arch, layers, served in MOE:
+        cfg = get_config(arch).replace(num_layers=layers)
+        nbytes = moe_weights_bytes(cfg)
+        print(f"== phase moe: {arch} at full width (D {cfg.d_model}, "
+              f"{cfg.num_experts} experts of d_ff {cfg.d_ff}, top-"
+              f"{cfg.experts_per_token}, {cfg.num_shared_experts} shared, "
+              f"{cfg.activation}, {cfg.sparse_ffn.mode} mode, "
+              f"{'two-level' if cfg.moe_intra_expert else 'whole experts'}"
+              f"), cut to {layers} of {get_config(arch).num_layers} layers, "
+              f"{cfg.param_dtype}; expert weights read per step "
+              f"{nbytes / 1e9:.2f} GB, bound "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.2f} ms")
+        res = dict(layers=layers, weight_bytes_per_step=nbytes,
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, serve={})
+        for sd, hw in served:
+            key = sd if hw is PHONE else f"{sd}, {hw.name}"
+            model, plan, runs, xs = moe_serve_pair(cfg, sd, hw)
+            res["serve"][key] = {
+                m: dict(launches=r["launches"], steps=r["steps"],
+                        wall_ms_median=r["wall_ms_median"],
+                        wall_ms_first=r["wall_ms_first"],
+                        plane_ms=r["plane_ms"], peak_bytes=r["peak_bytes"],
+                        **{k: r["profile"].get(k) for k in (
+                            "device_ms_per_step", "replay_ms_per_step",
+                            "kernels_per_step", "wall_ms_per_step")})
+                for m, r in runs.items()}
+            if sd == "fp16":
+                if xs.shape[0] < MOE_OVERFLOW // 4 + 1:
+                    raise AssertionError(f"{arch}: {xs.shape[0]} rows of x")
+                res.setdefault("plan_b1", {})[key] = dataclasses.asdict(
+                    plan.plan_for_batch(1))
+                res.setdefault("layer0", {})[key] = moe_layer_check(
+                    cfg, model, plan, xs)
+                try:
+                    ServeEngine(cfg, model, plan, backend="pallas")
+                except ValueError as e:
+                    print(f"  ServeEngine(..., backend='pallas') raises "
+                          f"before any step: {e}")
+                else:
+                    raise AssertionError(f"{arch}: a pallas engine was "
+                                         f"built")
+            del model, xs
+            free_cuda()
+        out[arch] = res
+    return out
+
+
 PHASES = ("kernel", "quant", "times", "gather", "serve", "parity", "api",
-          "fleet", "archs", "vlm")
+          "fleet", "archs", "vlm", "moe")
 
 
 def main(argv=None):
@@ -1628,6 +1894,7 @@ def main(argv=None):
     fleet = phase_fleet() if "fleet" in run else None
     archs = phase_archs() if "archs" in run else None
     vlm_out = phase_vlm() if "vlm" in run else None
+    moe_out = phase_moe() if "moe" in run else None
     if run != set(PHASES):
         print(f"chip_smoke: ran phases {sorted(run)} only; no summary")
         return 0
@@ -1663,13 +1930,17 @@ def main(argv=None):
                 fleet["fleet"]["eager"]["launches"],
             **{f"{a} stream (phase archs)": v["launches"]
                for a, v in archs.items()},
-            "vlm decode (phase vlm)": vlm_out["launches"]},
+            "vlm decode (phase vlm)": vlm_out["launches"],
+            **{f"{a} stream, {sd} {m} (phase moe)": r["launches"]
+               for a, v in moe_out.items()
+               for sd, runs in v["serve"].items()
+               for m, r in runs.items()}},
         "by_model": {a: {"layers": v["layers"],
                          "launches_per_step": v["launches"] // v["steps"],
                          "by_batch": {str(b): t
                                       for b, t in v["kernels"].items()}}
                      for a, v in archs.items()},
-        "fleet": fleet}, {
+        "fleet": fleet, "moe": moe_out}, {
         "name": "fused_cold_ffn (quant mode)", "route": "cuda",
         "source": src + "fused_cold_ffn.cu",
         "replaces": "src/repro/kernels/cluster_gather_ffn.py:148",

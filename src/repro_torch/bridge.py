@@ -1,15 +1,16 @@
 """Weights from the reference's parameter layout.
 
-`params_from_numpy(tree, cfg)` builds the port's `DenseModel` from the
-JAX package's parameter pytree with every leaf given as a numpy array
-(`load_checkpoint` reads that tree from a checkpoint the reference
-saved):
+`params_from_numpy(tree, cfg)` builds the port's model (`DenseModel`,
+or `MoEModel` for the moe family) from the JAX package's parameter
+pytree with every leaf given as a numpy array (`load_checkpoint` reads
+that tree from a checkpoint the reference saved):
 {"embed", "out_norm", ["lm_head"], "layers": {"ln1", "ln2", "attn":
 {"wq", "wk", "wv", "wo", ["qk": {"q_norm", "k_norm"}]}, "ffn": {"w",
 ["pred": {"A", "B"}], ["wq", "wsc", ["wout"]]}}}, layer leaves stacked
 (L, ...); the qk-norm weights are there when the config sets qk_norm,
 and the FFN's wq/wsc/wout are the stored cold bundles of int8 /
-int4-mixed storage. It reads numpy alone. bfloat16 leaves cross over bit for bit through a uint16 view:
+int4-mixed storage. A moe tree has "moe": {"router", "experts",
+["shared": {"w"}]} in place of "ffn". It reads numpy alone. bfloat16 leaves cross over bit for bit through a uint16 view:
 numpy holds them as ml_dtypes' extension type, or, read back from a
 `.npy` without it, as bare 2-byte voids or their uint16 bits, so a
 leaf's declared dtype (`dtypes`, from a checkpoint's manifest) wins over
@@ -23,6 +24,7 @@ import torch
 from repro_torch.checkpoint.ckpt import SEP, restore_numpy
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.dense import DenseModel
+from repro_torch.models.moe import MoEModel
 from repro_torch.models.modules import resolve_device
 
 
@@ -64,7 +66,8 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None,
                       dtypes=None) -> DenseModel:
     """The port's model on `device` (default `cuda`) holding `tree`'s
     weights; `dtypes` (the same nesting) declares leaves' dtypes."""
-    model = DenseModel(cfg, resolve_device(device))
+    model_type = MoEModel if cfg.family == "moe" else DenseModel
+    model = model_type(cfg, resolve_device(device))
 
     def load(param, *keys, layer=None):
         a, dt = _leaf(tree, dtypes, *keys)
@@ -77,7 +80,6 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None,
     load(model.out_norm, "out_norm")
     if model.lm_head is not None:
         load(model.lm_head, "lm_head")
-    ffn = _leaf(tree, dtypes, "layers", "ffn")[0]
     for l, layer in enumerate(model.layers):
         load(layer.ln1, "layers", "ln1", layer=l)
         load(layer.ln2, "layers", "ln2", layer=l)
@@ -87,21 +89,36 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None,
             for k in ("q_norm", "k_norm"):
                 load(getattr(layer.attn, k), "layers", "attn", "qk", k,
                      layer=l)
-        load(layer.ffn.w, "layers", "ffn", "w", layer=l)
-        N, R, D = layer.ffn.w.shape
-        for k, shape in (("wq", (N, R, D)), ("wsc", (N, R)),
-                         ("wout", (N, R, D))):
-            if k in ffn:
-                a, dt = _leaf(tree, dtypes, "layers", "ffn", k)
-                t = _tensor(a[l], dt)
-                if tuple(t.shape) != shape:
-                    raise ValueError(f"layers.ffn.{k}[{l}]: shape "
-                                     f"{tuple(t.shape)}, expected {shape}")
-                setattr(layer.ffn, k, t.to(model.device))
-        if layer.ffn.pred_A is not None:
-            load(layer.ffn.pred_A, "layers", "ffn", "pred", "A", layer=l)
-            load(layer.ffn.pred_B, "layers", "ffn", "pred", "B", layer=l)
+        if model_type is MoEModel:
+            _load_moe(layer.moe, load, l)
+        else:
+            _load_ffn(layer.ffn, tree, dtypes, load, l, model.device)
     return model
+
+
+def _load_ffn(ffn, tree, dtypes, load, l, device):
+    load(ffn.w, "layers", "ffn", "w", layer=l)
+    stored = _leaf(tree, dtypes, "layers", "ffn")[0]
+    N, R, D = ffn.w.shape
+    for k, shape in (("wq", (N, R, D)), ("wsc", (N, R)),
+                     ("wout", (N, R, D))):
+        if k in stored:
+            a, dt = _leaf(tree, dtypes, "layers", "ffn", k)
+            t = _tensor(a[l], dt)
+            if tuple(t.shape) != shape:
+                raise ValueError(f"layers.ffn.{k}[{l}]: shape "
+                                 f"{tuple(t.shape)}, expected {shape}")
+            setattr(ffn, k, t.to(device))
+    if ffn.pred_A is not None:
+        load(ffn.pred_A, "layers", "ffn", "pred", "A", layer=l)
+        load(ffn.pred_B, "layers", "ffn", "pred", "B", layer=l)
+
+
+def _load_moe(moe, load, l):
+    load(moe.router, "layers", "moe", "router", layer=l)
+    load(moe.experts, "layers", "moe", "experts", layer=l)
+    if moe.shared is not None:
+        load(moe.shared, "layers", "moe", "shared", "w", layer=l)
 
 
 def load_checkpoint(path: str, cfg: ModelConfig, device=None) -> DenseModel:

@@ -11,9 +11,9 @@ the paper's two I/O refinements:
   * block-size-aware reads: bundle fetches are split into the block
     size that maximizes the storage model's bandwidth.
 
-Here the "flash" is host DRAM: fetch() returns real numpy rows and
-a *modeled* I/O time from the configured StorageModel, so the serving
-engine and the pipeline benchmarks get both data and timing.
+Here the "flash" is host DRAM: price() gives a random read's *modeled*
+I/O time from the configured StorageModel (the reference's fetch() also
+returns the rows; the serving stack reads only the time).
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from repro_torch.core.io_model import StorageModel, UFS40
 
 @dataclass
 class FetchResult:
-    rows: np.ndarray          # (k, R, D) bundle rows
+    rows: np.ndarray          # (k, R, D) bundle rows; None from price()
     nbytes: int
     io_time: float            # modeled seconds
     n_ops: int
@@ -61,20 +61,23 @@ class ColdStore:
         b = self.layers[layer]
         return int(b[0].nbytes)
 
-    def fetch(self, layer: int, neuron_ids, gate_active=None) -> FetchResult:
-        """Random-read the given neuron bundles.
+    def price(self, layer: int, neuron_ids, gate_active=None) -> FetchResult:
+        """The modeled cost of a random read of the given neuron bundles,
+        counted in the store's totals. The reference's `fetch` also
+        copies the rows out of the host store; nothing in the serving
+        stack reads them, so the port returns rows=None and its host
+        cost does not grow with the bundles' bytes.
 
         gate_active: optional bool per id (two-phase loading §4.4) —
         inactive gates skip the Up/Down half of the bundle.
         """
         ids = np.asarray(neuron_ids, dtype=np.int64)
-        rows = self.layers[layer][ids]
         per_bundle = self.bundle_bytes(layer)
         n_eff = len(ids) * self.count_scale
         if self.two_phase and gate_active is not None:
             act = np.asarray(gate_active, dtype=bool)
             # gate = 1/R of the bundle; up/down only when active
-            R = rows.shape[1]
+            R = self.layers[layer].shape[1]
             nbytes = int(per_bundle / R * n_eff
                          + per_bundle * (R - 1) / R * act.sum()
                          * self.count_scale)
@@ -87,7 +90,7 @@ class ColdStore:
         self.total_fetches += n_ops
         self.total_bytes += nbytes
         self.total_io_time += t
-        return FetchResult(rows=rows, nbytes=nbytes, io_time=t, n_ops=n_ops)
+        return FetchResult(rows=None, nbytes=nbytes, io_time=t, n_ops=n_ops)
 
     def fetch_sequential(self, layer: int) -> FetchResult:
         """Stream a whole layer (prefill / hot-region preload, §4.1.1)."""

@@ -8,6 +8,10 @@ frequency f is 1-(1-f)^b, the Fig 2 union effect), capped by I/O-aware
 sizing; `build_plan` emits an ExecutionPlan. Plans save and load in the
 reference's JSON, so a plan the JAX package saved loads here.
 
+The MoE family's plan is `build_moe_plan` (experts as clusters, or the
+two-level intra-expert plan), with `moe_synthetic_frequencies` and
+`permute_moe_params` its counterparts of the dense pieces.
+
 Activation profiling and predictor calibration are a later slice; until
 then plans come from `synthetic_frequencies` or from a saved plan.
 """
@@ -20,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.clusters import HybridPlan, make_plan
+from repro_torch.core.clusters import HybridPlan, make_plan, round_down
 
 
 @dataclass(frozen=True)
@@ -89,6 +93,12 @@ class ExecutionPlan:
             plans={int(b): HybridPlan(**p) for b, p in obj["plans"].items()},
             hardware=HardwareProfile(**obj["hardware"]),
         )
+
+
+def _act_threshold(mode: str) -> float:
+    """|h| above which a neuron counts as active: relu-family
+    activations give exact zeros, CATS treats |h| <= 0.1 as nothing."""
+    return 0.0 if mode == "relu" else 0.1
 
 
 def synthetic_frequencies(cfg: ModelConfig, seed: int = 0,
@@ -186,3 +196,138 @@ def build_plan(cfg: ModelConfig, freqs: np.ndarray = None, *,
         arch=cfg.name, n_neurons=freqs.shape[1],
         cluster_size=cfg.sparse_ffn.cluster_size,
         neuron_order=order, frequencies=sorted_f, plans=plans, hardware=hw)
+
+
+# ------------------------------------------------------------------ MoE ----
+
+def moe_synthetic_frequencies(cfg: ModelConfig, seed: int = 0,
+                              zipf_a: float = 1.2) -> np.ndarray:
+    """Within-expert per-token activation frequencies (L, E*f),
+    conditional on the expert being routed: a hot band of
+    ~1.5*hot_ratio*f neurons ramping 0.95 -> 0.3, then a zipf cold tail,
+    each expert's rows in a random order."""
+    rng = np.random.default_rng(seed)
+    L, E, f = cfg.num_layers, cfg.num_experts, max(cfg.d_ff, 1)
+    band = int(np.clip(round(1.5 * cfg.sparse_ffn.hot_ratio * f), 1, f))
+    hot = np.linspace(0.95, 0.3, band)
+    rank = np.arange(1, f - band + 1, dtype=np.float64)
+    tail = 0.25 / rank ** zipf_a
+    base = np.concatenate([hot, tail])
+    freqs = np.stack([np.concatenate([rng.permutation(base)
+                                      for _ in range(E)])
+                      for _ in range(L)])
+    return freqs.astype(np.float32)
+
+
+@torch.no_grad()
+def permute_moe_params(model, order: np.ndarray):
+    """Per-expert hot-first reorder of each layer's routed experts
+    (E, f, R, D), in place, one expert at a time (no second copy of a
+    layer's experts). The shared experts keep the identity prefix of
+    the flat order and the router is per expert, so layer outputs are
+    unchanged up to fp reassociation. Returns the model."""
+    for l, layer in enumerate(model.layers):
+        ex = layer.moe.experts
+        E, f = ex.shape[:2]
+        S = order.shape[1] - E * f
+        ro = (np.asarray(order[l, S:], np.int64).reshape(E, f) - S
+              - (np.arange(E, dtype=np.int64) * f)[:, None])
+        for e in range(E):
+            idx = torch.from_numpy(ro[e]).to(ex.device)
+            ex[e].copy_(ex[e].index_select(0, idx))
+    return model
+
+
+def build_moe_plan(cfg: ModelConfig, freqs: np.ndarray = None, *,
+                   hw: HardwareProfile,
+                   batch_buckets=(1, 2, 4, 8, 16, 32),
+                   storage_dtype: str = "fp16") -> ExecutionPlan:
+    """Execution plan of the MoE family.
+
+    Whole-expert mode (`cfg.moe_intra_expert=False`): the flat neuron
+    space is [shared experts | routed experts], one cluster per routed
+    expert (cluster_size = d_ff). Per bucket the cold budget is the
+    expected batch union of routed experts, 1-(1-k/E)^b per expert,
+    clamped to [k, E] experts; the order is the identity.
+
+    Two-level mode (the TurboSparse-Mixtral case): each routed expert's
+    d_ff rows are permuted hot-first by `freqs` (L, E*f) (synthetic when
+    None). Per bucket the expert union picks n_act experts, the
+    per-expert hot prefix is sized by the union math at
+    b_e = ceil(b*k / n_act) tokens per active expert and capped by
+    `hot_io_cap`; hot compute is priced per activated expert
+    (n_hot = S + n_act*n_hot_e) and every expert's hot prefix is pinned
+    (n_pinned = S + E*n_hot_e)."""
+    f, E, k = cfg.d_ff, cfg.num_experts, cfg.experts_per_token
+    if not E or not k:
+        raise ValueError(f"{cfg.name} is not a MoE config "
+                         f"(num_experts={E}, experts_per_token={k})")
+    S = cfg.num_shared_experts * f
+    N = cfg.moe_flat_neurons
+    L = cfg.num_layers
+
+    def expert_union(b):
+        union = 1.0 - (1.0 - k / E) ** b
+        return min(max(int(round(E * union)), min(k, E)), E)
+
+    if not cfg.moe_intra_expert:
+        plans = {b: HybridPlan(n_hot=S, k_cold=expert_union(b) * f,
+                               groups=1, cluster_size=f,
+                               storage_dtype=storage_dtype)
+                 for b in batch_buckets}
+        # shared experts always fire; each routed expert at rate ~k/E
+        fr = np.concatenate([np.ones((S,), np.float32),
+                             np.full((E * f,), k / E, np.float32)])
+        fr = np.tile(fr, (L, 1))
+        order = np.tile(np.arange(N, dtype=np.int32), (L, 1))
+        return ExecutionPlan(
+            arch=cfg.name, n_neurons=N, cluster_size=f,
+            neuron_order=order, frequencies=fr, plans=plans, hardware=hw)
+
+    cs = cfg.sparse_ffn.cluster_size
+    if f % cs:
+        raise ValueError(
+            f"{cfg.name}: d_ff={f} must be a multiple of the "
+            f"intra-expert cluster size {cs}")
+    if freqs is None:
+        freqs = moe_synthetic_frequencies(cfg)
+    freqs = np.asarray(freqs, np.float32)
+    if freqs.shape != (L, E * f):
+        raise ValueError(
+            f"two-level MoE frequencies must be (L, E*f) = "
+            f"({L}, {E * f}); got {freqs.shape}")
+    per_exp = freqs.reshape(L, E, f)
+    order_e = np.argsort(-per_exp, axis=2).astype(np.int32)  # hot-first
+    sorted_f = np.take_along_axis(per_exp, order_e, axis=2)
+    mean_f = sorted_f.mean(axis=(0, 1))         # (f,) layer+expert profile
+    cap_e = max((hot_io_cap(cfg, hw, storage_dtype) - S) // E, 0)
+
+    plans = {}
+    for b in batch_buckets:
+        n_act = expert_union(b)
+        b_e = max(int(np.ceil(b * k / n_act)), 1)  # tokens/active expert
+        union = 1.0 - (1.0 - mean_f) ** b_e
+        n_hot_e = int((union > 0.5).sum())
+        n_hot_e = max(min(round_down(n_hot_e, cs),
+                          round_down(cap_e, cs), f - cs), 0)
+        cold_union = union[n_hot_e:]
+        cold_ratio = float(np.clip(cold_union.mean() * 2.0, 0.02, 1.0))
+        k_cold_e = max(round_down(int((f - n_hot_e) * cold_ratio), cs), cs)
+        plans[b] = HybridPlan(
+            n_hot=S + n_act * n_hot_e, k_cold=n_act * k_cold_e,
+            groups=1, cluster_size=cs,
+            n_expert_hot=n_hot_e, n_pinned=S + E * n_hot_e,
+            storage_dtype=storage_dtype)
+
+    # flat order: the identity shared prefix, then each expert's rows
+    # hot-first within its contiguous block (permute_moe_params applies
+    # it, so flat id == physical row)
+    routed = (order_e + (np.arange(E, dtype=np.int32) * f)[None, :, None]
+              + S).reshape(L, E * f)
+    shared = np.tile(np.arange(S, dtype=np.int32), (L, 1))
+    order = np.concatenate([shared, routed], axis=1).astype(np.int32)
+    fr = np.concatenate([np.ones((L, S), np.float32),
+                         sorted_f.reshape(L, E * f)], axis=1)
+    return ExecutionPlan(
+        arch=cfg.name, n_neurons=N, cluster_size=cs,
+        neuron_order=order, frequencies=fr, plans=plans, hardware=hw)

@@ -10,8 +10,11 @@ Plan (offline §5) -> permute weights hot-first -> ServeEngine (online
 `--host-dma` prices the slow tier as host DRAM behind DMA instead of UFS
 4.0. On the card each decode bucket runs as one captured CUDA graph.
 
-`--family {dense,vlm}` serves that family's default arch (smollm-135m,
-qwen2-vl-2b) unless `--arch` names another. `--dp N` routes the prompts
+`--family {dense,moe,vlm}` serves that family's default arch
+(smollm-135m, deepseek-moe-16b, qwen2-vl-2b) unless `--arch` names
+another (grok-1-314b and turbosparse-mixtral-47b are the other moe
+archs; the moe family serves the plain path only, so `--backend pallas`
+raises for it). `--dp N` routes the prompts
 over N replicas on the one device, and `--fleet N` over N complete
 engines behind the fleet gateway (weighted least-loaded dispatch,
 circuit breakers, response LRU, heartbeats); both serve the prompts as

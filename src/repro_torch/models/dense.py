@@ -29,11 +29,29 @@ class Layer(nn.Module):
         self.ln2 = blocks._param((cfg.d_model,), dtype, device)
         self.ffn = blocks.FFN(cfg, dtype, device)
 
+    def init_weights(self, generator: torch.Generator):
+        self.attn.init_weights(generator)
+        self.ffn.init_weights(generator)
+
+    def ffn_block(self, x, cfg: ModelConfig, plan, return_indices=False,
+                  active_mask=None):
+        """The layer's FFN on its normed input: the hybrid FFN under a
+        plan, dense without one. With return_indices, (y, trace)."""
+        return blocks.apply_ffn_block(self.ffn, x, cfg, plan,
+                                      return_indices=return_indices,
+                                      active_mask=active_mask)
+
 
 class DenseModel(nn.Module):
     """Parameters of the dense model, in the reference's layouts: embed
     (V_padded, D), out_norm (D,), per layer ln1/ln2 (D,), attention
-    wq/wk/wv/wo, the bundled FFN w (N, R, D) and its predictor."""
+    wq/wk/wv/wo, the bundled FFN w (N, R, D) and its predictor.
+
+    The layer walk below (prefill, decode) reaches the FFN only through
+    `layer.ffn_block`, so a subclass with another `layer_type` (the MoE
+    model, `models/moe.py`) serves through the same functions."""
+
+    layer_type = Layer
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -45,7 +63,7 @@ class DenseModel(nn.Module):
         self.embed = blocks._param((cfg.vocab_padded, cfg.d_model), dtype,
                                    device)
         self.out_norm = blocks._param((cfg.d_model,), dtype, device)
-        self.layers = nn.ModuleList(Layer(cfg, dtype, device)
+        self.layers = nn.ModuleList(self.layer_type(cfg, dtype, device)
                                     for _ in range(cfg.num_layers))
         self.lm_head = None if cfg.tie_embeddings else blocks._param(
             (cfg.d_model, cfg.vocab_padded), dtype, device)
@@ -63,8 +81,7 @@ class DenseModel(nn.Module):
         self.embed.copy_(embed_init(cfg.vocab_padded, cfg.d_model,
                                     self.embed.dtype, generator, self.device))
         for layer in self.layers:
-            layer.attn.init_weights(generator)
-            layer.ffn.init_weights(generator)
+            layer.init_weights(generator)
         if self.lm_head is not None:
             self.lm_head.copy_(dense_init(tuple(self.lm_head.shape),
                                           self.lm_head.dtype, generator,
@@ -78,12 +95,14 @@ class DenseModel(nn.Module):
                                dtype_of(cfg.param_dtype), self.device)
 
 
-def make_model(cfg: ModelConfig, device=None, seed: Optional[int] = 0):
-    """The dense model on `device` (default `cuda`; raises without a
-    card), with random weights from a `torch.Generator` seeded by `seed`
-    on that device, or zero weights to be filled when `seed` is None."""
+def make_model(cfg: ModelConfig, device=None, seed: Optional[int] = 0,
+               model_type=DenseModel):
+    """The dense model (or `model_type`) on `device` (default `cuda`;
+    raises without a card), with random weights from a `torch.Generator`
+    seeded by `seed` on that device, or zero weights to be filled when
+    `seed` is None."""
     device = resolve_device(device)
-    model = DenseModel(cfg, device)
+    model = model_type(cfg, device)
     if seed is not None:
         model.init_weights(torch.Generator(device=device).manual_seed(seed))
     return model
@@ -124,8 +143,8 @@ def forward_from_embeds(model: DenseModel, x, angles, *, plan=None,
                                  rms_norm(x, layer.ln1, cfg.norm_eps), cfg,
                                  angles, causal=True)
         x = x + a
-        x = x + blocks.apply_ffn_block(
-            layer.ffn, rms_norm(x, layer.ln2, cfg.norm_eps), cfg, plan)
+        x = x + layer.ffn_block(rms_norm(x, layer.ln2, cfg.norm_eps), cfg,
+                                plan)
         if collect_kv:
             kvs.append(kv)
     return x, kvs
@@ -172,8 +191,10 @@ def decode_step(model: DenseModel, tokens, cache,
     CUDA graph of the step replays on the same buffers), and returned.
     active_mask (B,) bool:
     live rows for the sparse-FFN batch-union selection; None = all rows
-    live. collect_indices=True also returns the per-layer selected cold
-    cluster ids (L, G, kc), the trace the storage plane prices.
+    live. collect_indices=True also returns the per-layer trace the
+    storage plane prices: the selected cold cluster ids (L, G, kc) of
+    dense layers, the MoE layers' (L, E) kept-dispatch counts or their
+    two-level (L, E, 1+ncc) form.
     angles_fn(pos) gives the RoPE angles (B, 1, dh/2) of the positions
     pos (B,) (the vlm's M-RoPE); default plain 1-D RoPE."""
     cfg = model.cfg
@@ -188,9 +209,9 @@ def decode_step(model: DenseModel, tokens, cache,
             layer.attn, rms_norm(x, layer.ln1, cfg.norm_eps), cfg, angles,
             cache["k"][l], cache["v"][l], kv_pos, pos)
         x = x + a
-        f = blocks.apply_ffn_block(
-            layer.ffn, rms_norm(x, layer.ln2, cfg.norm_eps), cfg, plan,
-            return_indices=collect_indices, active_mask=active_mask)
+        f = layer.ffn_block(rms_norm(x, layer.ln2, cfg.norm_eps), cfg, plan,
+                            return_indices=collect_indices,
+                            active_mask=active_mask)
         if collect_indices:
             f, cidx = f
             cidxs.append(cidx)

@@ -19,6 +19,10 @@ place:
 The containers are full size (all N rows), so `[n_hot:]` slices stay
 aligned with `w` for every batch bucket; rows below the quantization
 boundary are never read from them.
+
+MoE plans quantize the routed experts' cold rows in place (simulated
+quantization: the moe cold path is expert dispatch, not a cluster
+gather, so no containers), leaving the shared experts fp.
 """
 from __future__ import annotations
 
@@ -130,10 +134,19 @@ def _quantize_ffn(model, plan, storage_dtype):
     return model
 
 
+@torch.no_grad()
 def _quantize_moe(model, plan, storage_dtype):
-    raise NotImplementedError(
-        "quantized MoE experts come with the moe family, which the port "
-        "does not serve yet")
+    """MoE: write the quantize-dequantize roundtrip into the routed
+    experts' cold rows (whole-expert plans: every row; two-level plans:
+    rows past the smallest bucket's per-expert hot prefix), one layer at
+    a time with one outlier budget per expert, the reference's per
+    (layer, expert) budget. Shared experts stay fp."""
+    n_q_e = min(getattr(p, "n_expert_hot", 0) for p in plan.plans.values())
+    for layer in model.layers:
+        ex = layer.moe.experts                         # (E, f, R, D)
+        qd = quantize_bundles(ex[:, n_q_e:], storage_dtype, batch_dims=1)
+        ex[:, n_q_e:] = dequantize_bundles(qd).to(ex.dtype)
+    return model
 
 
 def quantize_plan_params(model, plan):

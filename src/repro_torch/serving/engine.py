@@ -137,11 +137,12 @@ class ServeReport:
 
 
 class ServeEngine:
-    """Single-device continuous-batching engine for the dense and vlm
-    families.
+    """Single-device continuous-batching engine for every registered
+    serving family (dense, vlm, moe).
 
-    `model` is the port's DenseModel (its weights already permuted
-    hot-first to match `plan`); the engine runs on its device.
+    `model` is the family's model (`DenseModel`, or `MoEModel` for moe),
+    its weights already prepared for `plan` (permuted hot-first,
+    quantized); the engine runs on its device.
     `cuda_graphs`: None captures each bucket's decode step in a CUDA
     graph on a CUDA device and runs it eagerly on the CPU; False runs it
     eagerly on either; True on the CPU raises. `dp` > 1 routes requests
@@ -169,6 +170,23 @@ class ServeEngine:
         if backend not in (None, "jnp", "pallas"):
             raise ValueError(f"unknown cold-path backend {backend!r}; "
                              f"expected 'jnp' or 'pallas'")
+        # the moe cold path is expert dispatch, not a cluster gather: no
+        # kernel serves it, so 'pallas' raises instead of quietly
+        # running the plain path under its name
+        if backend is not None and backend not in self.family.backends:
+            raise ValueError(
+                f"backend={backend!r} is the dense-family fused cold-path "
+                f"kernel; the {cfg.family} family's cold path is expert "
+                f"dispatch (models/moe.py) and has no {backend} backend "
+                f"yet")
+        if cfg.num_experts and cfg.moe_dispatch_groups != 1:
+            # the reference's meshless engine dispatches in one group
+            # whatever the config says (its groups follow the mesh); the
+            # port's model reads its own config, so it must say one
+            raise ValueError(
+                f"{cfg.name}: moe_dispatch_groups="
+                f"{cfg.moe_dispatch_groups}; one device serves one "
+                f"dispatch group (moe_dispatch_groups=1)")
         self.backend = backend
         self.cfg = cfg
         self.plan = plan
@@ -408,6 +426,7 @@ class ServeEngine:
             tokens = torch.from_numpy(
                 np.stack([r.prompt for r in group]).astype(np.int32)).to(
                     self.device)
+            # the model's own layers (dense FFN or MoE) run the prompt
             logits, cache = dense.prefill(self.model, tokens,
                                           max_len=self.arena.max_len)
             self.clock_s += self.storage.prefill_cost(group[0].prompt_len,

@@ -12,15 +12,17 @@ The plane's public surface is deliberately narrow:
     plane.step(trace, plan, batch, ctx) -> TokenStats
 
 where `trace` is the real per-layer activation trace produced by the
-data plane: (G, kc) selected cold-cluster ids per layer. The
-orchestrator (serving/engine.py) never touches cache/coldstore
-internals.
+data plane: (G, kc) selected cold-cluster ids per layer for the dense
+families, (E,) kept-dispatch expert counts for MoE (or the two-level
+(E, 1+ncc) intra-expert form). The orchestrator (serving/engine.py)
+never touches cache/coldstore internals.
 
 This is the port's copy of `repro/serving/storage_plane.py`, its logic
-unchanged, cut to the dense and vlm families' storage view
-(`FFNStorageView`: the flat neuron space, the bundled weight tensors, the trace ->
-neuron-id mapping and shard ownership); bundles are read from the
-port's model as numpy arrays. The MoE view comes with the moe family.
+unchanged. Everything family-specific (the flat neuron space, the
+bundled weight tensors, the trace -> neuron-id mapping and shard
+ownership) lives in a storage view: `FFNStorageView` for dense and vlm,
+`MoEStorageView` for moe. Bundles are read from the port's model as
+numpy arrays.
 """
 from __future__ import annotations
 
@@ -117,7 +119,149 @@ class FFNStorageView:
         return owner
 
 
-_VIEW_FAMILIES = {"dense": FFNStorageView, "vlm": FFNStorageView}
+class MoEStorageView:
+    """MoE flat neuron space [shared experts | routed experts], each
+    routed expert a contiguous f-row block.
+
+    Whole-expert mode (cfg.moe_intra_expert=False): one cluster per
+    routed expert (cluster_size = d_ff); the trace is the per-layer
+    kept-dispatch counts (E,), and an expert with count > 0 fetches its
+    d_ff neuron bundles.
+
+    Two-level mode: each expert's rows are hot-first (prepare_params
+    applied the plan's per-expert permutation, so flat id == physical
+    row) and the cluster unit is sparse_ffn.cluster_size. The trace is
+    (E, 1+ncc): column 0 the kept-dispatch counts, columns 1.. the real
+    activation counts per cold cluster; only the activated experts'
+    active cold clusters pay cold-store I/O, every expert's hot prefix
+    (and the shared experts) is pinned via the plan's n_pinned.
+
+    Shard ownership is expert-parallel: shard s owns ceil(E/n)
+    contiguous routed-expert blocks plus a uniform share of the shared
+    prefix."""
+
+    def __init__(self, cfg):
+        from repro_torch.core.sparse_ffn import ffn_rows
+        self.cfg = cfg
+        self.f = cfg.d_ff
+        self.E = cfg.num_experts
+        self.n_shared = cfg.num_shared_experts
+        self.S = cfg.num_shared_experts * cfg.d_ff
+        self.n_neurons = cfg.moe_flat_neurons
+        self.intra = bool(cfg.moe_intra_expert)
+        self.cluster_size = cfg.sparse_ffn.cluster_size if self.intra \
+            else cfg.d_ff
+        self.rows = ffn_rows(cfg.activation)
+
+    def bundles(self, model):
+        """Per-layer [shared | routed] (N, R, D) bundles as host numpy
+        arrays (fp32), copied to the host before the widening."""
+        out = []
+        for layer in model.layers:
+            moe = layer.moe
+            ex = moe.experts.detach().cpu().float().numpy()
+            E, f, R, D = ex.shape
+            flat = ex.reshape(E * f, R, D)
+            if moe.shared is not None:
+                sh = moe.shared.detach().cpu().float().numpy()
+                flat = np.concatenate([sh, flat], axis=0)
+            out.append(flat)
+        return out
+
+    def deploy_neurons(self, timing) -> float:
+        # timing.d_ff is the deployment per-expert width; the expert
+        # count is the data plane's (only widths rescale, like layers)
+        return timing.d_ff * (self.n_shared + self.E)
+
+    def deploy_prefill_neurons(self, timing) -> float:
+        # per-token prefill compute: shared + routed top-k experts
+        return timing.d_ff * (self.n_shared + self.cfg.experts_per_token)
+
+    def _expert_hot(self, plan: HybridPlan) -> int:
+        return plan.n_expert_hot if plan is not None else 0
+
+    def trace_cold_ids(self, trace_l, plan: HybridPlan):
+        """Flat cold neuron ids for one layer's trace. A trace whose
+        shape disagrees with the stepped plan (wrong expert count, wrong
+        cold-cluster count for the plan's n_expert_hot) raises: the data
+        plane and the plan disagree about the neuron space, and dropping
+        ids would hide it as under-priced I/O."""
+        tr = np.asarray(trace_l)
+        S, f, E, cs = self.S, self.f, self.E, self.cluster_size
+        n_hot_e = self._expert_hot(plan)
+        if n_hot_e:
+            ncc = (f - n_hot_e) // cs
+            if tr.shape != (E, 1 + ncc):
+                raise ValueError(
+                    f"two-level MoE trace shape {tr.shape} does not "
+                    f"match the stepped plan: expected (E, 1+ncc) = "
+                    f"({E}, {1 + ncc}) for n_expert_hot={n_hot_e}, "
+                    f"cluster_size={cs}, d_ff={f}")
+            act_e, act_c = np.nonzero(tr[:, 1:] > 0)
+            ids = (S + act_e[:, None] * f + n_hot_e
+                   + act_c[:, None] * cs
+                   + np.arange(cs)[None]).reshape(-1)
+        else:
+            counts = tr.reshape(-1)
+            if counts.shape[0] != E:
+                raise ValueError(
+                    f"MoE expert trace has {counts.shape[0]} entries "
+                    f"for {E} experts — the trace and the plan "
+                    f"disagree about the expert space")
+            act = np.nonzero(counts > 0)[0]
+            ids = (S + act[:, None] * f
+                   + np.arange(f)[None]).reshape(-1)
+        if ids.size and (ids.min() < 0 or ids.max() >= self.n_neurons):
+            raise ValueError(
+                f"MoE trace maps outside the flat neuron space "
+                f"[0, {self.n_neurons}) — ids span "
+                f"[{ids.min()}, {ids.max()}]")
+        return ids
+
+    def hot_ids(self, trace_l, plan: HybridPlan):
+        """The stepped hot set for systems without a pinned region: the
+        shared prefix plus, in two-level mode, the hot rows of the
+        experts the trace shows activated."""
+        n_hot_e = self._expert_hot(plan)
+        if not n_hot_e:
+            return np.arange(self.S)
+        tr = np.asarray(trace_l)
+        act = np.nonzero(tr[:, 0] > 0)[0]
+        hot = (self.S + act[:, None] * self.f
+               + np.arange(n_hot_e)[None]).reshape(-1)
+        return np.concatenate([np.arange(self.S), hot])
+
+    def warm_cold_ids(self, n_hot: int, count: int):
+        """Pre-warm ids for the cold caches. Whole-expert mode is flat
+        after the shared prefix, as the dense view; two-level mode
+        interleaves experts offset-major (the first cold cluster of every
+        expert is more frequent than any second one)."""
+        if not self.intra:
+            return np.arange(n_hot, min(n_hot + count, self.n_neurons))
+        # the per-expert pinned width, from the plane's pinned prefix
+        # (n_hot = S + E*n_hot_e, possibly capacity-capped)
+        n_hot_e = max((n_hot - self.S) // max(self.E, 1), 0)
+        offs = np.arange(self.f - n_hot_e)
+        grid = (self.S + np.arange(self.E)[None, :] * self.f + n_hot_e
+                + offs[:, None])                    # (n_cold_e, E)
+        return grid.reshape(-1)[:count]
+
+    def owner_of(self, ids, plan: HybridPlan, n_shards: int):
+        """Owning shard per flat id: contiguous expert blocks of ceil(E/n)
+        experts, the last clamped when E does not divide, and a uniform
+        split of the shared prefix."""
+        ids = np.asarray(ids)
+        n, S = n_shards, self.S
+        e_loc = max(-(-self.E // n), 1)             # ceil: clamped blocks
+        expert = (ids - S) // self.f
+        return np.where(
+            ids >= S,
+            np.minimum(expert // e_loc, n - 1),
+            (ids * n) // max(S, 1))
+
+
+_VIEW_FAMILIES = {"dense": FFNStorageView, "vlm": FFNStorageView,
+                  "moe": MoEStorageView}
 
 
 def make_storage_view(cfg):
@@ -416,7 +560,7 @@ class StoragePlane:
         if spec.use_bundling:
             gate_active = np.random.default_rng(l).random(
                 len(misses)) < 0.8 if spec.two_phase else None
-            return self.coldstore.fetch(l, misses, gate_active).io_time
+            return self.coldstore.price(l, misses, gate_active).io_time
         # unbundled: R scattered 4KB-class reads per neuron
         # (paper §4.4 — this is what bundling removes)
         R = self.timing.rows

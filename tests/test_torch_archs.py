@@ -18,7 +18,8 @@ package.
   decode logits within 1e-4 of the reference's (fp32), the decode under
   the hybrid FFN with ids identical between the two backends.
 * Families the port does not serve raise, as the reference's registry
-  does for what it does not serve.
+  does for what it does not serve; the three moe configs serve through
+  the moe family.
 """
 import dataclasses
 
@@ -48,8 +49,8 @@ from repro_torch.serving.engine import ServeEngine as TEngine
 ARCHS = sorted(jconfigs.list_archs())
 SERVED = ["qwen3-14b", "llama3-405b", "nemotron-4-15b", "bamboo-7b",
           "mistral-7b-silu", "qwen2-vl-2b"]
-UNSERVED = ["deepseek-moe-16b", "grok-1-314b", "turbosparse-mixtral-47b",
-            "mamba2-130m", "recurrentgemma-9b", "seamless-m4t-large-v2"]
+MOE = ["deepseek-moe-16b", "grok-1-314b", "turbosparse-mixtral-47b"]
+UNSERVED = ["mamba2-130m", "recurrentgemma-9b", "seamless-m4t-large-v2"]
 
 
 # ----------------------------------------------------------- registry ----
@@ -78,6 +79,7 @@ def test_registry_lists_match_reference():
 
 def test_served_families_match_reference():
     assert tfamilies.default_archs() == {"dense": "smollm-135m",
+                                         "moe": "deepseek-moe-16b",
                                          "vlm": "qwen2-vl-2b"}
     ref = jfamilies.default_archs()
     assert {f: ref[f] for f in tfamilies.servable_families()} == \
@@ -92,6 +94,19 @@ def test_unserved_families_raise(arch):
     cfg = tconfigs.get_config(arch).reduced()
     with pytest.raises(ValueError, match="not servable"):
         tfamilies.serving_family(cfg)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_archs_served(arch):
+    """The moe configs serve through the moe family, as the reference's
+    do, with the plain path only (tests/test_torch_moe.py holds them
+    against the reference)."""
+    cfg = tconfigs.get_config(arch).reduced()
+    fam = tfamilies.serving_family(cfg)
+    ref = jfamilies.serving_family(jconfigs.get_config(arch).reduced())
+    assert fam.family == ref.family == "moe"
+    assert fam.backends == ref.backends == ("jnp",)
+    assert fam.default_arch == ref.default_arch
 
 
 # ------------------------------------------------------------ serving ----

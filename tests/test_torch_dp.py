@@ -9,6 +9,9 @@ must be identical. The port's dp=2 must also give the tokens of two
 independent port dp=1 engines fed the streams the router gave each
 replica (the reference's golden). Exact equality throughout: both
 engines price the same traces with the same float64 host arithmetic.
+The same stream and report through both dp=2 engines on reduced
+deepseek-moe-16b (the moe family, (L, E) expert-count traces) must be
+identical too.
 """
 import dataclasses
 
@@ -20,10 +23,10 @@ from repro.configs import get_config as jget_config
 from repro.core.planner import PHONE as JPHONE, build_plan as jbuild_plan
 from repro.models import dense as jdense
 from repro.serving.engine import ServeEngine as JEngine
-from repro.serving.families import _dense_prepare
+from repro.serving.families import _dense_prepare, serving_family
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config as tget_config
-from repro_torch.core.planner import PHONE, build_plan
+from repro_torch.core.planner import PHONE, build_moe_plan, build_plan
 from repro_torch.serving.engine import ServeEngine as TEngine
 
 BUCKETS = (1, 2, 4)
@@ -213,3 +216,41 @@ def test_dp2_replicas_share_the_model_and_nothing_else(weights):
         TEngine(tcfg, te.model, tplan, dp=0, **KW)
     for e in (te, je, one):
         e.close()
+
+
+# ---------------------------------------------------------------- moe ----
+
+@pytest.fixture(scope="module")
+def moe_runs():
+    """The stream and the merged report through both dp=2 engines on
+    reduced deepseek-moe-16b, as `runs` does for smollm-135m."""
+    jcfg = jget_config("deepseek-moe-16b").reduced()
+    tcfg = tget_config("deepseek-moe-16b").reduced()
+    fam = serving_family(jcfg)
+    jplan = fam.build_plan(jcfg, hw=JPHONE)
+    params = fam.prepare_params(fam.make_model(jcfg).init(
+        jax.random.key(2)), jplan)
+    tree = jax.tree.map(np.asarray, params)
+    tplan = build_moe_plan(tcfg, hw=PHONE)
+    prompts = _prompts(jcfg.vocab_size)
+    out = []
+    for e in (JEngine(jcfg, params, jplan, dp=2, **KW),
+              TEngine(tcfg, params_from_numpy(tree, tcfg, device="cpu"),
+                      tplan, dp=2, **KW)):
+        run = _serve(e, prompts)
+        for p, (_, m, t) in zip(prompts, STREAM):
+            e.submit(p, max_new=m, arrival_time=e.clock_s + t)
+        out.append((run, _report(e.run_until_drained())))
+        e.close()
+    return out
+
+
+@pytest.mark.parametrize("key", ["assignment", "uids", "tokens", "steps",
+                                 "seen", "cancelled", "times", "history",
+                                 "clock", "report"])
+def test_dp2_moe_matches_reference(moe_runs, key):
+    (jrun, jrep), (trun, trep) = moe_runs
+    want, got = (jrep, trep) if key == "report" else (jrun[key], trun[key])
+    assert got == want
+    if key == "assignment":
+        assert {r for r, _ in got.values()} == {0, 1}

@@ -5,9 +5,10 @@ identical TokenStats, TTFTs, token latencies, percentiles and
 throughput, and identical load / next_event_time after every step;
 Best-of-N batch decay through generate(completion_schedule=, eos_id=)
 gives the reference's tokens, batch sizes and decoder switches; the
-storage models and their derates are the reference's. Exact equality
-throughout: both engines price the same traces with the same float64
-host arithmetic.
+storage models and their derates are the reference's; the cold
+store's `price` counts what the reference's `fetch` counts. Exact
+equality throughout: both engines price the same traces with the same
+float64 host arithmetic.
 """
 import dataclasses
 
@@ -251,3 +252,29 @@ def test_arena_capacity_follows_the_batch_and_prewarm(weights):
             toks, fresh.generate(prompts[rows], max_new=5,
                                  temperature=0.0).tokens)
         fresh.close()
+
+
+@pytest.mark.parametrize("two_phase", [False, True])
+@pytest.mark.parametrize("storage", STORAGES)
+def test_cold_store_price_matches_reference_fetch(storage, two_phase):
+    """price() gives the reference fetch()'s bytes, ops and modeled
+    seconds, and the same running totals, without copying rows out."""
+    from repro.core.coldstore import ColdStore as JStore
+    from repro_torch.core.coldstore import ColdStore as TStore
+    rng = np.random.default_rng(3)
+    bundles = [rng.standard_normal((64, 3, 16)).astype(np.float32)
+               for _ in range(2)]
+    kw = dict(two_phase=two_phase, block_size=4096,
+              bundle_bytes_override=24576, count_scale=2.5)
+    j = JStore(bundles, storage=getattr(jio, storage), **kw)
+    t = TStore(bundles, storage=getattr(tio, storage), **kw)
+    for layer in (0, 1, 1):
+        ids = rng.choice(64, 20, replace=False)
+        gate = rng.random(20) < 0.8
+        a = j.fetch(layer, ids, gate)
+        b = t.price(layer, ids, gate)
+        assert b.rows is None and a.rows.shape == (20, 3, 16)
+        assert (b.nbytes, b.io_time, b.n_ops) == (a.nbytes, a.io_time,
+                                                  a.n_ops)
+    assert (t.total_fetches, t.total_bytes, t.total_io_time) == \
+        (j.total_fetches, j.total_bytes, j.total_io_time)

@@ -9,7 +9,9 @@ stub backends and must observe the same things, FleetReport included.
 Then real engines: `local_fleet` over reduced smollm-135m (fp32) on the
 same weights gives the reference fleet's tokens and report with a member
 lost and restored mid-stream, a resubmitted prompt is a response-LRU
-hit, and the port's `build_fleet` and CLI serve streams on the CPU.
+hit, and the port's `build_fleet` and CLI serve streams on the CPU. The
+same fleet run and `build_fleet(2)` on reduced deepseek-moe-16b (the moe
+family) as well.
 """
 import asyncio
 import dataclasses
@@ -24,11 +26,11 @@ from repro.core.planner import PHONE as JPHONE, build_plan as jbuild_plan
 from repro.models import dense as jdense
 from repro.serving import gateway as jgw
 from repro.serving.engine import StepResult as JStepResult
-from repro.serving.families import _dense_prepare
+from repro.serving.families import _dense_prepare, serving_family
 from repro.serving.storage_plane import TokenStats as JTokenStats
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config as tget_config
-from repro_torch.core.planner import PHONE, build_plan
+from repro_torch.core.planner import PHONE, build_moe_plan, build_plan
 from repro_torch.serving import gateway as tgw
 from repro_torch.serving.engine import StepResult as TStepResult
 from repro_torch.serving.storage_plane import TokenStats as TTokenStats
@@ -528,3 +530,59 @@ def test_serve_cli_fleet_excludes_dp(capsys):
     with pytest.raises(SystemExit):
         main(["--reduced", "--device", "cpu", "--fleet", "2", "--dp", "2"])
     assert "--dp doesn't apply" in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------- moe ----
+
+@pytest.fixture(scope="module")
+def moe_fleet_runs():
+    """`_fleet_run` through both gateways over two reduced
+    deepseek-moe-16b engines on the same weights."""
+    jcfg = jget_config("deepseek-moe-16b").reduced()
+    tcfg = tget_config("deepseek-moe-16b").reduced()
+    fam = serving_family(jcfg)
+    jplan = fam.build_plan(jcfg, hw=JPHONE)
+    params = fam.prepare_params(fam.make_model(jcfg).init(
+        jax.random.key(4)), jplan)
+    tree = jax.tree.map(np.asarray, params)
+    out = []
+    for gw_mod, cfg, model, plan in (
+            (jgw, jcfg, params, jplan),
+            (tgw, tcfg, params_from_numpy(tree, tcfg, device="cpu"),
+             build_moe_plan(tcfg, hw=PHONE))):
+        gw = gw_mod.FleetGateway(
+            gw_mod.local_fleet(cfg, model, plan, 2, **ENGINE_KW),
+            heartbeat_s=5e-4, cache_capacity=8)
+        out.append(_fleet_run(gw, cfg.vocab_size))
+        gw.close()
+    return out
+
+
+@pytest.mark.parametrize("key", ["tokens", "backend_of", "retries",
+                                 "report", "after_hit"])
+def test_engine_fleet_moe_matches_reference(moe_fleet_runs, key):
+    jrun, trun = moe_fleet_runs
+    assert trun[key] == jrun[key]
+    if key == "report":
+        assert trun[key]["n_completed"] == N_REQ
+
+
+def test_build_fleet_moe_is_local_fleet_over_the_seeded_model():
+    from repro_torch.launch.serve import build_fleet
+    from repro_torch.serving.families import serving_family as tfamily
+    tcfg = tget_config("deepseek-moe-16b").reduced()
+    fam = tfamily(tcfg)
+    plan = fam.build_plan(tcfg, hw=PHONE)
+    model = fam.prepare_params(fam.make_model(tcfg, device="cpu", seed=0),
+                               plan)
+    runs = []
+    for gw in (build_fleet("deepseek-moe-16b", 2, device="cpu",
+                           engine_kwargs=dict(temperature=0.0,
+                                              buckets=(1, 2, 4)),
+                           heartbeat_s=5e-4, cache_capacity=8)[0],
+               tgw.FleetGateway(tgw.local_fleet(
+                   tcfg, model, plan, 2, seed=0, temperature=0.0,
+                   buckets=(1, 2, 4)), heartbeat_s=5e-4, cache_capacity=8)):
+        runs.append(_fleet_run(gw, tcfg.vocab_size))
+        gw.close()
+    assert runs[0] == runs[1]

@@ -1,6 +1,8 @@
 """The CUDA kernels (fused_cold_ffn in its fp and quant modes,
 cluster_gather_ffn, dense_ffn) against their plain PyTorch versions, on
-the card. Marked `gpu`: without a card each test skips with a reason.
+the card; the decode step's CUDA graphs against the eager step, the moe
+family's included; the moe FFN on the card against the CPU. Marked
+`gpu`: without a card each test skips with a reason.
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -677,3 +679,133 @@ def test_dp2_graph_matches_eager_at_full_width(cuda):
         engine.close()
     assert out[True] == out[False]
     assert {r for r, _ in out[True][1].values()} == {0, 1}
+
+
+# ------------------------------------------------------------ moe family ----
+
+def _moe_engine(arch, layers, cuda_graphs):
+    """The moe config at full width cut to `layers` layers (bf16), the
+    seeded model on the card, recording traces. The plan is PHONE's but
+    with a 100 ms prefetch window: PHONE's 2 ms holds fewer bundles than
+    turbosparse's shared expert, so its plan would have no per-expert
+    hot prefix and no two-level trace."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.planner import PHONE
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.families import serving_family
+    cfg = get_config(arch).replace(num_layers=layers)
+    fam = serving_family(cfg)
+    plan = fam.build_plan(cfg, hw=dataclasses.replace(PHONE,
+                                                       attn_time_s=0.1))
+    model = fam.prepare_params(fam.make_model(cfg, device="cuda", seed=0),
+                               plan)
+    engine = ServeEngine(cfg, model, plan, temperature=0.0, ctx_budget=48,
+                         cuda_graphs=cuda_graphs)
+    traces = []
+    price = engine.storage.step
+
+    def record(trace, *a, **k):
+        traces.append(np.array(trace).tolist())
+        return price(trace, *a, **k)
+    engine.storage.step = record
+    return engine, cfg, traces
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b",
+                                  "turbosparse-mixtral-47b"])
+def test_moe_graph_matches_eager_at_full_width(cuda, arch):
+    """Whole experts (deepseek-moe-16b) and two-level (turbosparse-
+    mixtral-47b) at full width, 2 layers, bf16: one CUDA graph per
+    bucket gives the eager step's tokens, (L, E) / (L, E, 1+ncc) traces
+    and TokenStats across the bucket ladder; no fused_cold_ffn launch."""
+    out = {}
+    for graphs in (True, False):
+        engine, cfg, traces = _moe_engine(arch, 2, graphs)
+        ops.fused_cold_ffn.launches = 0
+        toks, stats = _serve_graph_stream(engine, cfg.vocab_size)
+        torch.cuda.synchronize()
+        assert ops.fused_cold_ffn.launches == 0
+        assert all((type(fn).__name__ == "GraphedStep") == graphs
+                   for _, fn in engine.decoder._cache.values())
+        out[graphs] = (toks, traces, stats)
+        engine.close()
+        del engine
+    assert out[True] == out[False]
+    shape = np.array(out[True][1][0]).shape
+    assert shape[:2] == (2, cfg.num_experts)
+    assert len(shape) == (3 if cfg.moe_intra_expert else 2)
+
+
+def _near_relu_flips(moe_cpu, cfg, x, active, C, p):
+    """(E, ncc) occupied-slot cold activations whose fp64 gate
+    pre-activation lies within 1e-5 of relu's threshold."""
+    from repro_torch.models import moe as moe_mod
+    buf, (slot, keep, _), *_ = moe_mod._dispatch_group(
+        x, moe_cpu.router, cfg, C, active)
+    E = buf.shape[0]
+    occ = torch.zeros(E * C, dtype=torch.bool)
+    occ[slot[keep].long()] = True
+    g = torch.bmm(buf.double(),
+                  moe_cpu.experts[:, :, 0].double().transpose(1, 2))
+    near = ((g.abs() <= 1e-5) & occ.reshape(E, C, 1)).sum(dim=1)
+    ncc = (cfg.d_ff - p.n_expert_hot) // p.cluster_size
+    return near[:, p.n_expert_hot:].reshape(E, ncc, -1).sum(dim=-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "grok-1-314b",
+                                  "turbosparse-mixtral-47b"])
+@pytest.mark.parametrize("T", [1, 4, 32, 64])
+def test_apply_moe_ffn_card_matches_cpu(cuda, arch, T):
+    """apply_moe_ffn of the reduced config (fp32) on the card against the
+    CPU on the same weights and x, every third row dead; T 64 repeats one
+    row 48 times at capacity factor 0.5, past its experts' capacity (16
+    slots for 32 live copies). tope, slot, keep and the
+    kept counts identical, the two-level cold counts identical but for
+    fp64-confirmed near-threshold activations, y within 2e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.planner import PHONE
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serving.families import serving_family
+    cfg = get_config(arch).reduced()
+    if T == 64:
+        cfg = cfg.replace(moe_capacity_factor=0.5)
+    fam = serving_family(cfg)
+    plan = fam.build_plan(cfg, hw=PHONE)
+    cpu = fam.prepare_params(fam.make_model(cfg, device="cpu", seed=3),
+                             plan).layers[0].moe
+    dev = moe_mod.MoEFFN(cfg, torch.float32, cuda)
+    with torch.no_grad():
+        for name, p in dev.named_parameters():
+            p.copy_(getattr(cpu, name))
+    rng = np.random.default_rng(T)
+    x = rng.standard_normal((T, cfg.d_model)).astype(np.float32) * 0.1
+    if T == 64:
+        x[:48] = x[0]
+    x = torch.from_numpy(x)
+    active = torch.arange(T) % 3 != 2
+    E, k = cfg.num_experts, cfg.experts_per_token
+    C = moe_mod._capacity(T, k, E, cfg.moe_capacity_factor)
+    p = plan.plan_for_batch(T)
+    got = []
+    for moe, where in ((dev, cuda), (cpu, torch.device("cpu"))):
+        xd, ad = x.to(where), active.to(where)
+        disp = moe_mod.moe_dispatch(torch.softmax(xd @ moe.router, -1), k,
+                                    C, ad)
+        y, _, tr = moe_mod.apply_moe_ffn(moe, xd, cfg, plan=p,
+                                         active_mask=ad, collect_trace=True)
+        got.append([t.cpu() for t in (*disp, y, tr)])
+    (te, _, sl, kp, y, tr), (te0, _, sl0, kp0, y0, tr0) = got
+    for a, b in ((te, te0), (sl, sl0), (kp, kp0)):
+        assert torch.equal(a, b)
+    if T == 64:
+        assert not bool(kp0[active].all())       # live entries dropped
+    if tr.dim() == 1:
+        assert torch.equal(tr, tr0)
+    else:
+        assert torch.equal(tr[:, 0], tr0[:, 0])
+        near = _near_relu_flips(cpu, cfg, x, active, C, p)
+        assert bool(((tr[:, 1:] - tr0[:, 1:]).abs() <= near).all())
+    torch.testing.assert_close(y, y0, atol=2e-4, rtol=2e-4)

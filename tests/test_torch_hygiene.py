@@ -26,7 +26,8 @@ def test_port_and_smoke_import_no_jax():
         assert {{"repro_torch.serving.gateway", "repro_torch.models.vlm",
                  "repro_torch.configs.paper_models",
                  "repro_torch.configs.qwen3_14b",
-                 "repro_torch.configs.qwen2_vl_2b"}} <= set(names)
+                 "repro_torch.configs.qwen2_vl_2b",
+                 "repro_torch.models.moe"}} <= set(names)
         for n in names:
             importlib.import_module(n)
         spec = importlib.util.spec_from_file_location(
