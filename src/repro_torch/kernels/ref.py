@@ -126,6 +126,36 @@ def cats_zero_gates(idx, x, wc, A, Bp, rel: float = GATE_REL):
     return (score.abs() <= rel * scale).nonzero().cpu()
 
 
+def near_threshold(x, w, activation: str, mode: str, dx: float = 0.0):
+    """(T, N) bool: the (token, neuron) pairs whose activation test
+    |h| > _act_threshold(mode) (`core/planner.py`'s profile) two
+    computations may decide differently. x (..., D) is one computation's
+    FFN input, recomputed in fp64; the other's x may differ by up to `dx`
+    per entry and sums in another order, so the gate g = x.w_g lies
+    within GATE_REL*sum|x w_g| + dx*sum|w_g| of the fp64 value (the up
+    projection u alike). A pair is flagged when |h| over that box reaches
+    both sides of the threshold, as `cats_zero_gates` flags a gate within
+    rounding of 0."""
+    from repro_torch.core.planner import _act_threshold
+    act = activation_fn(activation)
+    xd, wd = x.double().reshape(-1, x.shape[-1]), w.double()
+
+    def box(j):
+        v = xd @ wd[:, j].T
+        e = GATE_REL * (xd.abs() @ wd[:, j].abs().T) \
+            + dx * wd[:, j].abs().sum(-1)
+        return v - e, v + e
+    g = box(0)
+    a = torch.stack([act(g[0]), act(g[1])])
+    u = torch.stack(box(1)) if w.shape[1] == 3 else torch.ones_like(a)
+    prods = (a[:, None] * u[None, :]).abs()
+    hi = prods.amax(dim=(0, 1))
+    lo = prods.amin(dim=(0, 1))
+    lo = torch.where((a[0] * a[1] <= 0) | (u[0] * u[1] <= 0), 0.0, lo)
+    tau = _act_threshold(mode)
+    return (lo <= tau) & (hi > tau)
+
+
 def _apply_bundle(x, wsel, activation: str):
     """x (B, D), wsel (K, R, D) -> (B, D) fp32: gate/up dots in fp32, the
     activation, h cast to the weight dtype, the down dot in fp32."""

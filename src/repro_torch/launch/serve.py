@@ -1,7 +1,11 @@
 """End-to-end serving driver of the port.
 
-Plan (offline §5) -> permute weights hot-first -> ServeEngine (online
-§4) -> batched generation. Runs on the CUDA card unless `--device cpu`:
+Profile -> plan (offline §5) -> permute weights hot-first ->
+ServeEngine (online §4) -> batched generation. The engine path (`--dp`
+included) plans from the activations it profiles on the model
+(`build_engine(..., profile=True)`), as the reference's CLI does;
+`--fleet` plans from synthetic frequencies, as the reference's does.
+Runs on the CUDA card unless `--device cpu`:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --backend pallas \
       --bon 4 --max-new 32            # smollm-135m at full width
@@ -39,7 +43,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.baselines import POWERINFER2
 from repro_torch.core.io_model import HOST_DMA, UFS40
-from repro_torch.core.planner import PHONE
+from repro_torch.core.planner import PHONE, profile_activations
 from repro_torch.models.modules import resolve_device
 from repro_torch.serving.engine import ServeEngine
 from repro_torch.serving.families import default_archs, serving_family
@@ -49,16 +53,19 @@ FAMILY_ARCHS = default_archs()
 
 def build_engine(arch: str = "smollm-135m", reduced: bool = True,
                  offload: float = 0.5, spec=POWERINFER2, storage=UFS40,
-                 seed: int = 0, backend: str = "jnp",
+                 profile: bool = False, seed: int = 0, backend: str = "jnp",
                  storage_dtype: str = "fp16", hw=PHONE, device=None,
                  dp: int = 1, **engine_kwargs):
     """Build a serving engine for `arch` on `device` (default `cuda`;
     raises on a host without a card), routing over `dp` replicas. Weights
-    are random, from a `torch.Generator` seeded by `seed`; the plan comes
-    from the planner with synthetic frequencies on hardware profile
-    `hw`."""
+    are random, from a `torch.Generator` seeded by `seed`. The plan comes
+    from the planner on hardware profile `hw`: with `profile`, from the
+    activation frequencies `profile_activations` measures over four
+    (4, 64) batches of uniform token ids (`profile_batches`; the moe
+    family is not profiled, as in the reference), else from synthetic
+    frequencies."""
     cfg, model, plan = _model_and_plan(arch, reduced, seed, backend,
-                                       storage_dtype, hw, device)
+                                       storage_dtype, hw, device, profile)
     if backend != "jnp":
         engine_kwargs.setdefault("backend", backend)
     if dp > 1:
@@ -68,15 +75,39 @@ def build_engine(arch: str = "smollm-135m", reduced: bool = True,
                        **engine_kwargs), cfg
 
 
+# build_engine(profile=True)'s corpus, the reference's: four (4, 64)
+# token batches
+PROFILE_BATCHES, PROFILE_SHAPE = 4, (4, 64)
+
+
+def profile_batches(cfg, device, seed: int = 0):
+    """The profiling token batches of `build_engine(profile=True)`:
+    PROFILE_BATCHES batches of PROFILE_SHAPE uniform ids in
+    [0, vocab_size) drawn in turn from a `torch.Generator` on `device`
+    seeded by `seed`. The reference draws them from `jax.random` keys
+    0..3, which torch cannot reproduce, so the two packages profile
+    different tokens for the same seed."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randint(0, cfg.vocab_size, PROFILE_SHAPE, generator=g,
+                          device=device) for _ in range(PROFILE_BATCHES)]
+
+
 def _model_and_plan(arch, reduced, seed, backend, storage_dtype, hw,
-                    device):
+                    device, profile=False):
     device = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
     fam = serving_family(cfg)
     model = fam.make_model(cfg, device=device, seed=seed)
-    plan = fam.build_plan(cfg, hw=hw, backend=backend,
+    freqs = None
+    if profile and not cfg.num_experts:
+        # dense-layer activation profiling; the moe router needs none
+        # (routing is the predictor, experts are the clusters)
+        counts, n_tok = profile_activations(
+            model, cfg, profile_batches(cfg, device, seed))
+        freqs = (counts / n_tok).astype(np.float32)
+    plan = fam.build_plan(cfg, freqs, hw=hw, backend=backend,
                           storage_dtype=storage_dtype)
     return cfg, fam.prepare_params(model, plan), plan
 
@@ -182,8 +213,8 @@ def main(argv=None):
         gw.close()
         return
     engine, cfg = build_engine(arch, args.reduced, args.offload,
-                               dp=args.dp, temperature=args.temperature,
-                               **common)
+                               profile=True, dp=args.dp,
+                               temperature=args.temperature, **common)
     prompt = _prompts(cfg, args)
     if args.dp > 1:
         rep, wall = _serve_stream(engine, prompt, args.max_new)

@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.predictor import init_predictor
 from repro_torch.core.sparse_ffn import ffn_apply, ffn_rows
 from repro_torch.models.attention import (
     apply_rotary, decode_attention, flash_attention, maybe_qk_norm)
@@ -115,10 +116,13 @@ class FFN(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
-        for p in (self.w, self.pred_A, self.pred_B):
-            if p is not None:
-                p.copy_(dense_init(tuple(p.shape), p.dtype, generator,
-                                   p.device))
+        self.w.copy_(dense_init(tuple(self.w.shape), self.w.dtype,
+                                generator, self.w.device))
+        if self.pred_A is not None:
+            (D, r), N = self.pred_A.shape, self.pred_B.shape[1]
+            for p, v in zip(self.pred, init_predictor(
+                    D, N, r, self.w.dtype, generator, self.w.device)):
+                p.copy_(v)
 
 
 def apply_ffn_block(p: FFN, x, cfg: ModelConfig, plan, return_indices=False,

@@ -1,7 +1,10 @@
 """The CUDA kernels (fused_cold_ffn in its fp and quant modes,
 cluster_gather_ffn, dense_ffn) against their plain PyTorch versions, on
 the card; the decode step's CUDA graphs against the eager step, the moe
-family's included; the moe FFN on the card against the CPU. Marked
+family's included; the moe FFN on the card against the CPU; the offline
+planner's profile and calibration on the card against the CPU, the
+profiled engine graphed and eager, and calibration under captured
+graphs. Marked
 `gpu`: without a card each test skips with a reason.
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -19,7 +22,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (
     cats_zero_gates, cluster_gather_ffn_ref, dense_ffn_ref,
-    fused_cold_ffn_ref, pick_disagreements, picked_ffn)
+    fused_cold_ffn_ref, near_threshold, pick_disagreements, picked_ffn)
 from repro_torch.quant.storage import quantize_bundles
 
 # (B, D, r, cs, G, nc_g, R, kc, activation, mode, dtype)
@@ -809,3 +812,109 @@ def test_apply_moe_ffn_card_matches_cpu(cuda, arch, T):
         near = _near_relu_flips(cpu, cfg, x, active, C, p)
         assert bool(((tr[:, 1:] - tr0[:, 1:]).abs() <= near).all())
     torch.testing.assert_close(y, y0, atol=2e-4, rtol=2e-4)
+
+
+# ------------------------------------------------------ offline planner ----
+
+def _planner_tokens(cfg, n=2, shape=(2, 32)):
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, shape[1], shape[0]))
+    return [data.batch()["tokens"] for _ in range(n)]
+
+
+@pytest.mark.gpu
+def test_profile_and_calibration_card_match_cpu(cuda):
+    """smollm-135m reduced (fp32), the same weights and tokens on the card
+    and the CPU: counts identical but for near-threshold pairs, X within
+    1e-5 of its scale, H identical but for flagged pairs; the card's
+    calibrated A@B within 1e-6 relative of the CPU's fp64 solve and
+    truncation on the same X and H (the card's, copied to the host: two
+    X that differ in rounding give solutions that differ by that rounding
+    times the ridge system's condition)."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.core import planner
+    from repro_torch.models.dense import make_model
+    cfg = get_config("smollm-135m").reduced()
+    cpu = make_model(cfg, device="cpu", seed=4)
+    dev = copy.deepcopy(cpu).to(cuda)
+    tokens = _planner_tokens(cfg)
+    counts, n = planner.profile_activations(dev, cfg, tokens)
+    counts0, n0 = planner.profile_activations(cpu, cfg, tokens)
+    X, H = planner.profile_ffn_inputs(dev, cfg, tokens)
+    X0, H0 = planner.profile_ffn_inputs(cpu, cfg, tokens)
+    assert X.device == dev.device and n == n0 == 128
+    X, H = X.cpu(), H.cpu()
+    torch.testing.assert_close(X, X0, rtol=0,
+                               atol=1e-5 * float(X0.abs().max()))
+    flags = torch.stack([near_threshold(
+        X0[l], cpu.layers[l].ffn.w, cfg.activation, cfg.sparse_ffn.mode,
+        dx=float((X[l] - X0[l]).abs().max())) for l in range(len(X))])
+    assert not bool((H != H0)[~flags].any())
+    diff = np.abs(counts - counts0)
+    per = flags.sum(1).numpy()
+    assert (diff <= per).all() and (diff[per == 0] == 0).all()
+    planner.calibrate_predictor(dev, cfg, tokens)
+    for l in range(cfg.num_layers):
+        a, b = dev.layers[l].ffn.pred_A, dev.layers[l].ffn.pred_B
+        got = (a.double() @ b.double()).cpu()
+        ra, rb = planner._ridge_low_rank(X[l], H[l], 1e-2,
+                                         cfg.sparse_ffn.predictor_rank)
+        want = ra @ rb
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_profiled_engine_graph_matches_eager(cuda):
+    """build_engine(profile=True) at full width (smollm-135m, bf16): the
+    profile on the card gives the same plan twice, and the graphed engine
+    serves the eager one's tokens, cluster ids and TokenStats; the kernel
+    runs once per layer in each step whose bucket keeps a cold path (on
+    random weights CATS activates most neurons, and the profiled plan
+    may make all of them hot)."""
+    from repro_torch.core.adaptation import bucket_for
+    out, orders = {}, []
+    for graphs in (True, False):
+        engine, cfg, traces = _full_width_engine("fp16", graphs,
+                                                 ctx_budget=48, profile=True)
+        orders.append(engine.plan.neuron_order)
+        ops.fused_cold_ffn.launches = 0
+        toks, stats = _serve_graph_stream(engine, cfg.vocab_size)
+        plans = [engine.plan.plan_for_batch(
+            bucket_for(s.batch, engine.decoder.buckets)) for s in stats]
+        cold = sum(p.n_hot < cfg.d_ff and p.clusters_per_group > 0
+                   for p in plans)
+        assert ops.fused_cold_ffn.launches == cfg.num_layers * cold
+        out[graphs] = (toks, [t.tolist() for t in traces], stats)
+        engine.close()
+    np.testing.assert_array_equal(orders[0], orders[1])
+    assert out[True] == out[False]
+
+
+@pytest.mark.gpu
+def test_calibration_after_capture_keeps_replays_valid(cuda):
+    """calibrate_predictor on an engine whose bucket graph is captured
+    writes the predictor in place: the next replay (no new capture) gives
+    the tokens of a fresh engine calibrated before its first step."""
+    from repro_torch.core.planner import calibrate_predictor
+    rng = np.random.default_rng(13)
+    first, second = (rng.integers(0, 49152, (2, 12)).astype(np.int32)
+                     for _ in range(2))
+    engine, cfg, _ = _full_width_engine("fp16", True, ctx_budget=32,
+                                        profile=True)
+    tokens = _planner_tokens(cfg)
+    engine.generate(first, max_new=4, temperature=0.0)
+    steps = [fn for _, fn in engine.decoder._cache.values()]
+    assert steps and all(fn.captures == 1 for fn in steps)
+    address = engine.model.layers[0].ffn.pred_B.data_ptr()
+    calibrate_predictor(engine.model, cfg, tokens)
+    assert engine.model.layers[0].ffn.pred_B.data_ptr() == address
+    got = engine.generate(second, max_new=4, temperature=0.0).tokens
+    assert all(fn.captures == 1 for fn in steps)
+    engine.close()
+    fresh, _, _ = _full_width_engine("fp16", True, ctx_budget=32,
+                                     profile=True)
+    calibrate_predictor(fresh.model, cfg, tokens)
+    want = fresh.generate(second, max_new=4, temperature=0.0).tokens
+    fresh.close()
+    np.testing.assert_array_equal(got, want)

@@ -1,7 +1,11 @@
 """Quantized cold storage in the port against the JAX package, on the
 same numpy inputs: byte accounting, the exact top-k outlier mask, the
 int8 / int4-mixed bundle quantizers (bit-identical codes, scales,
-outliers and roundtrip, tie-heavy bf16 weights included), the plan at
+outliers and roundtrip, tie-heavy bf16 weights included), the per-tensor
+group-wise, per-channel and mixed int4 schemes and the int8 KV helpers
+(bit-identical at fp32, bf16 and fp16, all-zero rows and tied
+magnitudes included; `quant_error` and `kv_quant_error` within 1e-6),
+the plan at
 every storage dtype, the quant mode of fused_cold_ffn (its plain
 version against the Pallas kernel in interpret mode: ids identical, y
 within the reference's 2e-4 / 5e-2) and the engine on reduced smollm
@@ -143,6 +147,107 @@ def test_quantize_bundles_bit_identical(sd, kind):
     if sd == "int4-mixed":
         k = int(round(96 * 3 * 40 * js.OUTLIER_FRAC))
         assert [int((qt["wout"][l] != 0).sum()) for l in range(2)] == [k, k]
+
+
+# ------------------------------------------- per-tensor int4 and KV ----
+
+DTYPES = {"fp32": jnp.float32, "bf16": jnp.bfloat16, "fp16": jnp.float16}
+
+
+def _tensor_pair(dtype, shape, seed, ties=False):
+    """(jnp, torch) of one tensor with the same bits at `dtype`, its
+    second row along the first axis all zero (the scale floor) and, with
+    `ties`, values of four magnitudes only (the outlier mask's tie
+    order decides)."""
+    rng = np.random.default_rng(seed)
+    if ties:
+        w = rng.choice(np.array([-0.5, -0.25, 0.125, 0.25, 0.5, 1.0, -1.0],
+                                np.float32), size=shape)
+    else:
+        w = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+    w[1] = 0.0
+    wj = jnp.asarray(w, DTYPES[dtype])
+    return wj, _t(np.asarray(wj))
+
+
+def _same_tree(t, j, name):
+    assert set(t) == set(j), name
+    for k in j:
+        if isinstance(j[k], dict):
+            _same_tree(t[k], j[k], f"{name}.{k}")
+        elif isinstance(j[k], int):
+            assert t[k] == j[k], f"{name}.{k}"
+        else:
+            _assert_same(t[k], j[k], f"{name}.{k}")
+
+
+SCHEMES = {
+    "group32": (lambda m, w: m.quantize_groupwise_int4(w),
+                lambda m, q: m.dequantize_groupwise_int4(q)),
+    "group16": (lambda m, w: m.quantize_groupwise_int4(w, group=16),
+                lambda m, q: m.dequantize_groupwise_int4(q)),
+    "per_channel": (lambda m, w: m.quantize_per_channel_int4(w),
+                    lambda m, q: m.dequantize_per_channel_int4(q)),
+    "mixed": (lambda m, w: m.quantize_mixed(w),
+              lambda m, q: m.dequantize_mixed(q)),
+    "mixed5": (lambda m, w: m.quantize_mixed(w, outlier_frac=0.05),
+               lambda m, q: m.dequantize_mixed(q)),
+}
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["normal", "ties"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("scheme", sorted(SCHEMES))
+def test_per_tensor_scheme_bit_identical(scheme, dtype, ties):
+    """Codes, scales, outlier masks, fp16 outliers and the dequantized
+    weights of each int4 scheme equal the reference's bit for bit, an
+    all-zero row and a (2, 5, 64) stack included."""
+    quant, dequant = SCHEMES[scheme]
+    for shape in ((6, 64), (2, 5, 64)):
+        wj, wt = _tensor_pair(dtype, shape, seed=len(scheme), ties=ties)
+        qj, qt = quant(jq, wj), quant(tq, wt)
+        _same_tree(qt, qj, scheme)
+        _assert_same(dequant(tq, qt), dequant(jq, qj), f"{scheme} dequant")
+    if scheme.startswith("mixed"):
+        frac = 0.05 if scheme == "mixed5" else 0.01
+        assert int(qt["outlier_mask"].sum()) == max(1, int(
+            wt.numel() * frac))
+
+
+def test_groupwise_needs_whole_groups():
+    for mod, w in ((jq, jnp.zeros((3, 40))), (tq, torch.zeros(3, 40))):
+        with pytest.raises(ValueError, match="multiple of group=32"):
+            mod.quantize_groupwise_int4(w)
+    assert tq.quantize_groupwise_int4(torch.zeros(3, 40), group=8)[
+        "q"].shape == (3, 40)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("scheme", ["group32", "per_channel", "mixed"])
+def test_quant_error_matches_reference(scheme, dtype):
+    wj, wt = _tensor_pair(dtype, (8, 96), seed=7)
+    kw = {"outlier_frac": 0.02} if scheme == "mixed" else {}
+    got = tq.quant_error(wt, scheme, **kw)
+    want = jq.quant_error(wj, scheme, **kw)
+    assert got == pytest.approx(want, rel=1e-6, abs=1e-6)
+    assert tq.quant_error(np.array(wj, np.float32), scheme, **kw) == \
+        pytest.approx(want, rel=1e-6, abs=1e-6)
+    with pytest.raises(ValueError):
+        tq.quant_error(wt, "int3")
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_kv_helpers_bit_identical(dtype):
+    """int8 KV codes and per-(token, head) scales, an all-zero vector's
+    floor included; the roundtrip error within 1e-6."""
+    kvj, kvt = _tensor_pair(dtype, (2, 7, 3, 16), seed=8)
+    qj, qt = jq.quantize_kv(kvj), tq.quantize_kv(kvt)
+    _same_tree(qt, qj, "kv")
+    assert qt["scale"].shape == (2, 7, 3, 1) and qt["q"].dtype == torch.int8
+    assert float(qt["scale"][1].min()) == np.float32(1e-8)
+    _assert_same(tq.dequantize_kv(qt), jq.dequantize_kv(qj), "kv dequant")
+    assert tq.kv_quant_error(kvt) == pytest.approx(
+        jq.kv_quant_error(kvj), rel=1e-6, abs=1e-6)
 
 
 @pytest.fixture(scope="module")
