@@ -81,9 +81,9 @@ without printing a result:
             under the kernel and under the plain chain: finite logits,
             28 launches per step, identical ids but for near ties;
    moe    — the moe family at full width, bf16, no kernel on its path:
-            deepseek-moe-16b (whole experts, cut to 8 of 28 layers) at
+            deepseek-moe-16b (whole experts, cut to 4 of 28 layers) at
             fp16 and int8 storage and turbosparse-mixtral-47b (relu
-            mode, cut to 4 of 32 layers) on the PHONE plan and on a
+            mode, cut to 2 of 32 layers) on the PHONE plan and on a
             two-level plan (a 100 ms prefetch window: n_expert_hot 128,
             the (L, E, 1+ncc) trace) serve phase 4's stream graphed and
             eagerly: tokens, traces and TokenStats identical, no
@@ -120,6 +120,31 @@ without printing a result:
             that keeps a cold path, against its plain version (the same
             allowance), with its time in a CUDA graph, the plain time and
             the bound;
+   tp     — tensor, expert and data parallelism on four gloo ranks that
+            share the card (repro_torch.parallel.spawn; NCCL refuses two
+            ranks on one device, so no multi-GPU speed is measured), the
+            golden's plan of groups=4 scaled per bucket, phase 4's
+            stream, eager (gloo collectives cannot be captured), each
+            rank building the same seeded weights and keeping its slice:
+            smollm-135m in fp32 (4 layers) at tp 1, 2 and 4: tokens, ids
+            and TokenStats identical to tp=1 (its trace repriced at n
+            shards), effective time within 1.01x; smollm-135m in bf16 (30
+            layers) at tp 1, 2 and 4: every (step, layer)'s gathered ids
+            equal the unsharded selection on the same x but for near
+            ties, 30 fused_cold_ffn launches per step on every rank, and
+            layer 0's per-rank kernel over its g_loc groups held against
+            its plain version at B 1/4/32 and timed (the ranks in turn);
+            bamboo-7b (4 layers; 32 heads, 8 kv heads: attention
+            head-sharded, a KV arena of 4 kv heads per rank) at tp 2
+            against tp=1, in fp32 as smollm's fp32 and in bf16 as
+            smollm's bf16 (its per-rank kernel at D 4096 held with the
+            rounding allowance, as phase plan holds relu2);
+            deepseek-moe-16b in fp32 (8 layers) at ep=2 against ep=1:
+            tokens, traces and TokenStats, no kernel launch; dp=2 x tp=2
+            against dp=2 on one rank: tokens; per rank the wall per
+            step, the collectives per step and their time (a spy on the
+            group's collectives, the card synchronized around each), the
+            FFN rows held, the weights and the serve's peak memory;
 7. summary — a JSON line of every kernel, then {"ok": true, ...}.
 
 `--only` runs the card and build phases and then the named ones, and
@@ -1756,8 +1781,8 @@ WINDOW = dataclasses.replace(PHONE, name="snapdragon-8gen3, 100 ms window",
                              attn_time_s=0.1)
 # (arch, layers kept, (storage dtype, hardware profile) served): the
 # paper's widths, cut in depth to fit the script's time limit
-MOE = (("deepseek-moe-16b", 8, (("fp16", PHONE), ("int8", PHONE))),
-       ("turbosparse-mixtral-47b", 4, (("fp16", PHONE), ("fp16", WINDOW))))
+MOE = (("deepseek-moe-16b", 4, (("fp16", PHONE), ("int8", PHONE))),
+       ("turbosparse-mixtral-47b", 2, (("fp16", PHONE), ("fp16", WINDOW))))
 MOE_BATCHES = (1, 4, 32)
 MOE_OVERFLOW = 64          # rows of the capacity-overflow case
 MOE_NEAR = 1e-4            # |g| of an fp64 recompute within a flip
@@ -1930,8 +1955,8 @@ def moe_serve_pair(cfg, sd, hw):
 def phase_moe():
     """The moe family at full width, bf16, random weights from seed 0, on
     the planner's plan under the PHONE profile: deepseek-moe-16b (whole
-    experts, 8 of 28 layers) at fp16 and int8 storage, and
-    turbosparse-mixtral-47b (two-level, relu mode, 4 of 32 layers). Each
+    experts, 4 of 28 layers) at fp16 and int8 storage, and
+    turbosparse-mixtral-47b (two-level, relu mode, 2 of 32 layers). Each
     serves phase 4's stream graphed and eagerly (tokens, traces and
     TokenStats identical, no fused_cold_ffn launch), then layer 0's
     apply_moe_ffn runs in fp32 on the card against the CPU; a pallas
@@ -2280,8 +2305,552 @@ def phase_plan(card):
     return out
 
 
+# ------------------------------------------------------------ phase tp ----
+
+# gloo ranks that share the one card (NCCL refuses two ranks on one
+# device): right, and launched at the per-rank shapes; no multi-GPU speed
+TP_WORLD = 4
+TP_BUCKETS = (1, 2, 4, 8, 16, 32, 64)  # the plan's buckets, scaled
+TP_BATCHES = (1, 4, 32)                # the per-rank kernel's holds
+# (key, arch, layers kept (None: all), dtype, tp sizes, per-rank kernel)
+TP_DENSE = (("smollm fp32", "smollm-135m", 4, "float32", (1, 2, 4), False),
+            ("smollm bf16", "smollm-135m", None, "bfloat16", (1, 2, 4),
+             True),
+            ("bamboo fp32", "bamboo-7b", 4, "float32", (1, 2), False),
+            ("bamboo bf16", "bamboo-7b", 4, "bfloat16", (1, 2), True))
+TP_MOE = ("deepseek-moe-16b", 8, "float32")
+
+
+# this rank's collectives so far and their seconds (spy_collectives)
+TP_COLL = {"calls": 0, "seconds": 0.0}
+
+
+def spy_collectives():
+    """Wrap every ShardGroup collective of this process so that it adds
+    its call and its seconds to TP_COLL, the device idle before and
+    after it, so that the time is the collective's alone. The library's
+    collectives wait on nothing of their own; this spy's waits are the
+    smoke's."""
+    from repro_torch.parallel import ShardGroup
+
+    def timed(fn):
+        def run(self, *a, **k):
+            if self.size == 1:
+                return fn(self, *a, **k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, *a, **k)
+            torch.cuda.synchronize()
+            TP_COLL["seconds"] += time.perf_counter() - t0
+            TP_COLL["calls"] += 1
+            return out
+        return run
+    for name in ("all_reduce_f32", "all_gather_ids", "broadcast",
+                 "broadcast_object"):
+        setattr(ShardGroup, name, timed(getattr(ShardGroup, name)))
+
+
+def tp_plan(cfg, groups=4):
+    """The reference golden's plan (tests/test_distributed.py:166-171):
+    the planner's neuron order, make_plan(d_ff, 0.25, 0.25, cs, groups)
+    scaled to each bucket."""
+    plan = build_plan(cfg, hw=PHONE)
+    cs = cfg.sparse_ffn.cluster_size
+    base = make_plan(cfg.d_ff, 0.25, 0.25, cs, groups=groups)
+    plan.plans = {b: scale_plan_for_batch(base, cfg.d_ff, b, cs)
+                  for b in TP_BUCKETS}
+    return plan
+
+
+def tp_cfg(arch, layers, dtype):
+    return arch_cfg(arch, layers).replace(param_dtype=dtype,
+                                          compute_dtype=dtype)
+
+
+def tp_model(cfg, plan=None):
+    """The family's model on the card from seed 0 (the same weights on
+    every rank) and its plan (default the family's on PHONE), prepared as
+    build_engine prepares them."""
+    fam = serving_family(cfg)
+    model = fam.make_model(cfg, device="cuda", seed=0)
+    plan = plan or fam.build_plan(cfg, hw=PHONE)
+    return fam.prepare_params(model, plan), plan
+
+
+def tp_serve(engine, record_x=None):
+    """Phase 4's stream through `engine` on this rank: tokens, per-step
+    stats, the storage plane's calls, walls and collectives (medians per
+    step: the first step also opens the group's connections), launches,
+    the weights held and the serve's peak above them. With `record_x` (the
+    decoding model) every (step, layer)'s FFN input and live mask are
+    recorded."""
+    from repro_torch.models import blocks
+    calls, price = [], engine.storage.step
+    engine.storage.step = lambda tr, p, b, c: (
+        calls.append((np.array(tr), p, b, c)) or price(tr, p, b, c))
+    xs, inner = [], blocks.ffn_apply
+    if record_x is not None:
+        layer_of = {id(l.ffn.w): i for i, l in enumerate(record_x.layers)}
+
+        def spy(w, pred, x, act, scfg, plan, *a, **k):
+            if plan is not None:
+                xs.append((layer_of[id(w)],
+                           x.detach().reshape(-1, x.shape[-1]).clone(),
+                           k["active_mask"].clone()))
+            return inner(w, pred, x, act, scfg, plan, *a, **k)
+        blocks.ffn_apply = spy
+    per_step, step = [], engine.step
+
+    def counted():
+        """engine.step, with the step's collectives and their seconds"""
+        c0, s0 = TP_COLL["calls"], TP_COLL["seconds"]
+        out = step()
+        if out is not None:
+            per_step.append((TP_COLL["calls"] - c0, TP_COLL["seconds"] - s0))
+        return out
+    engine.step = counted
+    ops.fused_cold_ffn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    try:
+        toks, stats, walls = serve_stream(engine, engine.cfg.vocab_size)
+    finally:
+        blocks.ffn_apply = inner
+    steps = len(stats)
+    calls_ps, secs_ps = np.array(per_step, dtype=float).T
+    return dict(
+        toks=toks, stats=stats, calls=calls, xs=xs, steps=steps,
+        launches=ops.fused_cold_ffn.launches,
+        wall_ms=float(np.median(walls) * 1e3),
+        coll_per_step=float(np.median(calls_ps)),
+        coll_ms_per_step=float(np.median(secs_ps) * 1e3),
+        peak_bytes=torch.cuda.max_memory_allocated() - base,
+        weight_bytes=sum(t.numel() * t.element_size()
+                         for t in itertools.chain(engine.model.parameters(),
+                                                  engine.model.buffers())))
+
+
+def tp_same_x(cfg, model, run):
+    """Every (step, layer) of `run`: the group's gathered ids against the
+    unsharded selection (the plain version over the whole model's layer)
+    on the same x and live mask, identical but for fp64-confirmed near
+    ties. Returns the near-tie positions."""
+    L, near_at = cfg.num_layers, []
+    for i, (l, x, mask) in enumerate(run["xs"]):
+        s = i // L
+        trace, p = run["calls"][s][:2]
+        wc, A, Bp = layer_operands(model, p, l)
+        ids = torch.from_numpy(trace[l]).to(x.device)
+        _, ir = fused_cold_ffn_ref(x, wc, A, Bp, mask.float(),
+                                   activation=cfg.activation,
+                                   cats=cfg.sparse_ffn.mode == "cats",
+                                   kc=p.clusters_per_group)
+        near, real = pick_disagreements(ids, ir, x, wc, A, Bp, mask.float())
+        if real:
+            raise AssertionError(f"{cfg.name} step {s} layer {l}: the "
+                                 f"group picked {real} against the "
+                                 f"unsharded selection on the same x")
+        near_at += [(s, l)] * bool(near)
+    return near_at
+
+
+def tp_rank_kernel(cfg, model, plan, shard, xs):
+    """This rank's fused_cold_ffn on layer 0's g_loc groups and rows of x
+    from its serve, at each B of TP_BATCHES under the bucket's plan,
+    against its plain version (hold_kernel; relu2 with its rounding
+    allowance); then its time per call (eager and in a
+    CUDA graph), the plain version's and the bound. The ranks time in
+    turn, the others waiting at a barrier, so no two share the card."""
+    from repro_torch.parallel import cold_range
+    ffn = model.layers[0].ffn
+    _, R, D = ffn.w.shape
+    mode = cfg.sparse_ffn.mode
+    out, calls = {}, {}
+    for B in TP_BATCHES:
+        p = plan.plan_for_batch(B)
+        sl = ffn.rows.local(*cold_range(p, cfg.d_ff, shard.rank,
+                                        shard.size))
+        g_loc, cs, kc = p.groups // shard.size, p.cluster_size, \
+            p.clusters_per_group
+        wc = ffn.w[sl].reshape(g_loc, -1, cs, R, D)
+        A, Bp = ffn.pred_A, ffn.pred_B[:, sl]
+        x = xs[:B].contiguous()
+        mask = torch.ones(B, dtype=torch.bool, device=x.device)
+        name = (f"rank {shard.rank} of {shard.size}, layer 0 B={B} (g_loc "
+                f"{g_loc}, nc_g {wc.shape[1]}, cs {cs}, kc {kc})")
+        # relu2 on random weights: |y| up to 1e4 from sums that cancel,
+        # held as phase plan holds bamboo (plus `rounding_allowance`)
+        err = hold_kernel(name, x, wc, A, Bp, mask, cfg.activation, mode, kc,
+                          rounding=cfg.activation == "relu2")
+        s = dict(D=D, r=A.shape[1], cs=cs, G=g_loc, nc_g=wc.shape[1], R=R,
+                 kc=kc)
+        out[B] = dict(max_abs_err=err, shape=s, g_loc=g_loc)
+        calls[B] = (
+            lambda x=x, wc=wc, Bp=Bp, kc=kc: ops.fused_cold_ffn(
+                x, wc, A, Bp, activation=cfg.activation, mode=mode, kc=kc),
+            lambda x=x, wc=wc, Bp=Bp, kc=kc, m=mask.float():
+                fused_cold_ffn_ref(x, wc, A, Bp, m, activation=cfg.activation,
+                                   cats=mode == "cats", kc=kc))
+    for r in range(shard.size):
+        if r == shard.rank:
+            for B, t in out.items():
+                call, plain = calls[B]
+                b_ms, b_by = bound(B, xs.dtype, s=t["shape"])
+                t.update(ms=cuda_time_ms(call), graph_ms=graph_time_ms(call),
+                         plain_ms=cuda_time_ms(plain), bound_ms=b_ms,
+                         bound_by=b_by)
+        torch.distributed.barrier(group=shard.group)
+    return out
+
+
+def tp_dense(world, groups, arch, layers, dtype, sizes, kernel=False):
+    """One dense-family model at full width, the golden's plan of groups=4,
+    phase 4's stream at each tp of `sizes` (pallas, eager) on ranks
+    [0, tp). In fp32 the parent holds every tp's tokens, traces and
+    TokenStats (the tp=1 trace repriced at n_shards = tp) to tp=1's; in
+    bf16 rank 0 holds every (step, layer)'s ids to the unsharded selection
+    on the same x (near ties aside) and the decodes' agreement is counted.
+    Each rank launches fused_cold_ffn once per layer and step."""
+    from repro_torch.bridge import shard_model
+    cfg = tp_cfg(arch, layers, dtype)
+    exact = dtype == "float32"
+    # a rank outside every group of the case builds nothing
+    model, plan = tp_model(cfg, tp_plan(cfg)) \
+        if groups[max(sizes)].member else (None, None)
+    runs = {}
+    for n in sizes:
+        torch.distributed.barrier(group=world.group)
+        grp = groups[n]
+        if not grp.member:
+            continue
+        free_cuda()
+        local = shard_model(model, plan, grp)
+        engine = ServeEngine(cfg, local, plan, backend="pallas",
+                             temperature=0.0, seed=0, ctx_budget=CTX,
+                             cuda_graphs=False,
+                             shard=grp if n > 1 else None)
+        run = tp_serve(engine, record_x=None if exact else local)
+        engine.close()
+        rows = local.layers[0].ffn.rows
+        run.update(policy=engine.graph_policy, kv_heads=local.kv_heads,
+                   ffn_rows=cfg.d_ff if rows is None else len(rows.ids))
+        if run["launches"] != cfg.num_layers * run["steps"]:
+            raise AssertionError(f"{cfg.name} tp={n} rank {grp.rank}: "
+                                 f"{run['launches']} fused_cold_ffn "
+                                 f"launches for {run['steps']} steps of "
+                                 f"{cfg.num_layers} layers")
+        if not exact:
+            t0 = time.perf_counter()
+            run["near"] = tp_same_x(cfg, model, run) if grp.rank == 0 \
+                else None
+            run["same_x_s"] = time.perf_counter() - t0
+            if kernel and n > 1:
+                xs0 = torch.cat([x for l, x, _ in run["xs"] if l == 0])
+                run["kernel"] = tp_rank_kernel(cfg, local, plan, grp, xs0)
+        if n == 1:
+            run["share"] = tp_ffn_share(cfg, plan, sizes[1:])
+        if n == 1 and exact:
+            # the tp=1 trace repriced at n shards: the stats tp=n must show
+            run["repriced"] = {}
+            for m in sizes[1:]:
+                plane = StoragePlane(cfg, model, plan, spec=POWERINFER2,
+                                     n_shards=m)
+                run["repriced"][m] = [plane.step(tr, p, b, c)
+                                      for tr, p, b, c in run["calls"]]
+                plane.close()
+        run["traces"] = [c[0] for c in run.pop("calls")]
+        run.pop("xs")
+        runs[n] = run
+        del local, engine
+    return cfg, runs
+
+
+def tp_ffn_share(cfg, plan, sizes):
+    """The share of a layer's FFN rows that each rank holds (the union
+    over the plan's buckets, `parallel.shard_layout`) at each tp of
+    `sizes`, under `plan` (the golden's groups=4) and under the family's
+    PHONE plan (groups=1: the cold region whole on every rank)."""
+    from repro_torch.parallel import shard_layout
+    plans = {"groups=4": plan, "PHONE plan": build_plan(cfg, hw=PHONE)}
+    return {(name, n): [len(shard_layout(cfg, p, r, n).ffn.ids) / cfg.d_ff
+                        for r in range(n)]
+            for name, p in plans.items() for n in sizes}
+
+
+def tp_moe(groups, arch, layers, dtype):
+    """An moe model at full width, ep=1 on rank 0 and ep=2 on ranks
+    [0, 2); the parent holds ep=2's tokens, traces and TokenStats (the
+    ep=1 trace repriced at n_shards = 2) to ep=1's. Ranks 2 and 3 build
+    nothing."""
+    from repro_torch.bridge import shard_model
+    cfg = tp_cfg(arch, layers, dtype)
+    runs = {}
+    if not groups[2].member:
+        return cfg, runs
+    model, plan = tp_model(cfg)
+    for n in (1, 2):
+        grp = groups[n]
+        if n == 2:                    # rank 1 waits out rank 0's ep=1
+            torch.distributed.barrier(group=grp.group)
+        if not grp.member:
+            continue
+        free_cuda()
+        local = shard_model(model, plan, grp)
+        if n == 2:                    # the rank serves its slice alone
+            model = None
+            free_cuda()
+        engine = ServeEngine(cfg, local, plan, temperature=0.0, seed=0,
+                             ctx_budget=CTX, cuda_graphs=False,
+                             shard=grp if n > 1 else None)
+        run = tp_serve(engine)
+        engine.close()
+        run["experts"] = local.layers[0].moe.experts.shape[0]
+        if n == 1:
+            plane = StoragePlane(cfg, model, plan, spec=POWERINFER2,
+                                 n_shards=2)
+            run["repriced"] = [plane.step(tr, p, b, c)
+                               for tr, p, b, c in run["calls"]]
+            plane.close()
+        run["traces"] = [c[0] for c in run.pop("calls")]
+        run.pop("xs")
+        runs[n] = run
+        del local, engine
+    return cfg, runs
+
+
+def tp_dp(world, cfg):
+    """dp=2 x tp=2 over the four ranks against dp=2 on rank 0 alone:
+    FLEET_STREAM's prompts, all arriving at once (as the reference's dp
+    golden has them: tp=2 planes price another modeled clock, so
+    staggered arrivals would meet other batches), their tokens for the
+    parent to hold."""
+    from repro_torch.bridge import shard_model
+    from repro_torch.parallel import ShardGroup
+    model, plan = tp_model(cfg, tp_plan(cfg))
+    prompts = fleet_prompts(cfg.vocab_size)
+    out = {}
+    for name in ("dp2", "dp2tp2"):
+        torch.distributed.barrier(group=world.group)
+        if name == "dp2" and world.rank != 0:
+            continue
+        free_cuda()
+        grid = name == "dp2tp2"
+        local = shard_model(model, plan, ShardGroup(world.rank % 2, 2)) \
+            if grid else model
+        engine = ServeEngine(cfg, local, plan, backend="pallas",
+                             temperature=0.0, seed=0, ctx_budget=CTX,
+                             cuda_graphs=False, dp=2,
+                             shard=world if grid else None)
+        spent = lambda: TP_COLL["seconds"]
+        uids = [engine.submit(p, max_new=MAX_NEW, arrival_time=i * 1e-6)
+                for i, p in enumerate(prompts)]
+        walls, colls = [], []
+        while True:
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), spent()
+            r = engine.step()
+            torch.cuda.synchronize()
+            if r is None:
+                break
+            walls.append(time.perf_counter() - t0)
+            colls.append(spent() - c0)
+        out[name] = dict(
+            toks={u: list(engine.sched.sequences[u].generated)
+                  for u in uids},
+            replicas=sorted({a for a, _ in engine.router.assignment.values()}),
+            wall_ms=float(np.median(walls) * 1e3), steps=len(walls),
+            coll_ms_per_step=float(np.median(colls) * 1e3))
+        engine.close()
+    return out
+
+
+def tp_rank(world):
+    """Every case of phase tp on this rank of the gloo world (all ranks on
+    cuda:0); its results for the parent to hold and print."""
+    from repro_torch.parallel import replica_groups
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spy_collectives()
+    groups = {n: replica_groups(world, TP_WORLD // n, n)[0]
+              for n in (1, 2, 4)}
+    out, secs = {}, {}
+    for key, arch, layers, dtype, sizes, kernel in TP_DENSE:
+        t0 = time.perf_counter()
+        cfg, runs = tp_dense(world, groups, arch, layers, dtype, sizes,
+                             kernel)
+        out[key] = dict(cfg=(cfg.name, cfg.num_layers, cfg.d_model,
+                             cfg.num_heads, cfg.num_kv_heads), runs=runs)
+        secs[key] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg, runs = tp_moe(groups, *TP_MOE)
+    out["moe"] = dict(cfg=(cfg.name, cfg.num_layers, cfg.d_model,
+                           cfg.num_experts), runs=runs)
+    secs["moe"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["dp"] = tp_dp(world, tp_cfg("smollm-135m", 4, "float32"))
+    secs["dp"] = time.perf_counter() - t0
+    out["seconds"] = secs
+    return out
+
+
+def tp_hold_dense(key, runs):
+    """Hold one TP_DENSE case's per-rank results (see tp_dense) and print
+    them; the summary's rows by tp."""
+    base = runs[0][1]
+    exact = "fp32" in key
+    rows = {}
+    for n in sorted(runs[0]):
+        per = [r[n] for r in runs if n in r]
+        if len(per) != n:
+            raise AssertionError(f"{key} tp={n}: {len(per)} ranks ran")
+        r0 = per[0]
+        for i, r in enumerate(per):
+            if r["toks"] != r0["toks"] or any(
+                    not np.array_equal(a, b)
+                    for a, b in zip(r["traces"], r0["traces"])):
+                raise AssertionError(f"{key} tp={n}: rank {i} decoded "
+                                     f"other tokens or ids than rank 0")
+        same_toks = r0["toks"] == base["toks"]
+        same_ids = sum(np.array_equal(a, b)
+                       for a, b in zip(r0["traces"], base["traces"]))
+        pairs = sum(len(t) for t in base["traces"])
+        same_pairs = sum(np.array_equal(a[l], b[l]) for a, b in
+                         zip(r0["traces"], base["traces"])
+                         for l in range(min(len(a), len(b))))
+        if exact:
+            if not same_toks or same_ids != len(base["traces"]) \
+                    or len(r0["traces"]) != len(base["traces"]):
+                raise AssertionError(f"{key} tp={n}: tokens or ids differ "
+                                     f"from tp=1")
+            if n > 1:
+                want = [dataclasses.asdict(s) for s in base["repriced"][n]]
+                if [dataclasses.asdict(s) for s in r0["stats"]] != want:
+                    raise AssertionError(f"{key} tp={n}: TokenStats differ "
+                                         f"from the tp=1 trace repriced at "
+                                         f"{n} shards")
+                e1 = sum(s.effective_s for s in base["stats"])
+                en = sum(s.effective_s for s in r0["stats"])
+                if en > 1.01 * e1 or any(
+                        abs(s.io_total_s - sum(h.io_s for h in s.shards))
+                        > 1e-12 for s in r0["stats"]):
+                    raise AssertionError(f"{key} tp={n}: per-shard "
+                                         f"accounting ({en} s against {e1})")
+            verdict = "tokens, ids and TokenStats identical to tp=1"
+        else:
+            verdict = (f"ids = the unsharded selection on the same x at every "
+                       f"(step, layer) (near ties at {r0['near']}); tokens "
+                       f"{'identical to' if same_toks else 'differ from'} "
+                       f"tp=1's, ids identical at {same_pairs} of {pairs} "
+                       f"(step, layer) (x drifts in bf16)")
+        print(f"    tp={n}: {r0['policy']}; kv heads per rank "
+              f"{r0['kv_heads']}; FFN rows per rank "
+              + ", ".join(str(r["ffn_rows"]) for r in per)
+              + f" of {base['ffn_rows']}; {verdict}")
+        for i, r in enumerate(per):
+            print(f"      rank {i}: wall {r['wall_ms']:.2f} ms/step (median "
+                  f"of {r['steps']}), collectives {r['coll_per_step']:.1f} "
+                  f"per step taking {r['coll_ms_per_step']:.2f} ms, "
+                  f"fused_cold_ffn {r['launches'] // r['steps']} per step, "
+                  f"weights {r['weight_bytes'] / 2**20:.1f} MiB + serve "
+                  f"peak {r['peak_bytes'] / 2**20:.1f} MiB")
+            for B, t in r.get("kernel", {}).items():
+                print(f"      rank {i} layer 0 B={B:2d} (g_loc {t['g_loc']}): "
+                      f"kernel {t['ms'] * 1e3:.2f} us "
+                      f"({t['graph_ms'] * 1e3:.2f} in a graph), plain "
+                      f"{t['plain_ms'] * 1e3:.2f} us, bound "
+                      f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}), max "
+                      f"|y - plain| {t['max_abs_err']:.3e}")
+        rows[n] = dict(
+            launches=r0["launches"], steps=r0["steps"],
+            ffn_rows=[r["ffn_rows"] for r in per],
+            launches_per_step_per_rank=r0["launches"] // r0["steps"],
+            tokens_identical=same_toks, ids_identical_steps=same_ids,
+            ids_identical_pairs=[same_pairs, pairs],
+            wall_ms=[r["wall_ms"] for r in per],
+            coll_per_step=[r["coll_per_step"] for r in per],
+            coll_ms_per_step=[r["coll_ms_per_step"] for r in per],
+            weight_mib=[r["weight_bytes"] / 2**20 for r in per],
+            peak_mib=[r["peak_bytes"] / 2**20 for r in per],
+            kernel={i: r["kernel"] for i, r in enumerate(per)
+                    if "kernel" in r})
+    for (name, n), share in base["share"].items():
+        print(f"    FFN rows a rank holds at tp={n} under the {name}: "
+              + ", ".join(f"{f:.3f}" for f in share) + " of the layer's")
+    return rows
+
+
+def phase_tp(card):
+    """Tensor, expert and data parallelism over gloo ranks that share the
+    card; the ranks hold what they can alone (launches, the per-rank
+    kernel, ids on the same x) and this process holds the ranks against
+    each other and against tp=1. A failing rank fails the phase."""
+    from repro_torch.parallel import spawn
+    print(f"== phase tp: {TP_WORLD} gloo ranks sharing the card (the "
+          f"collectives pass through the host: no multi-GPU speed)")
+    free_cuda()
+    t0 = time.perf_counter()
+    ranks = spawn(tp_rank, TP_WORLD, device="cuda", threads=2, timeout=600)
+    print(f"  {card}")
+    out = {}
+    for key, *_ in TP_DENSE:
+        name, L, D, H, KV = ranks[0][key]["cfg"]
+        print(f"  {key}: {name} (D {D}, {L} layers, {H} heads / {KV} kv), "
+              f"plan groups=4, phase 4's stream, pallas, eager")
+        out[key] = tp_hold_dense(key, [r[key]["runs"] for r in ranks])
+    name, L, D, E = ranks[0]["moe"]["cfg"]
+    one, two = ranks[0]["moe"]["runs"][1], \
+        [r["moe"]["runs"][2] for r in ranks[:2]]
+    want = [dataclasses.asdict(s) for s in one["repriced"]]
+    for r in two:
+        if r["toks"] != one["toks"] or len(r["traces"]) != len(
+                one["traces"]) or any(not np.array_equal(a, b) for a, b in
+                                      zip(r["traces"], one["traces"])) \
+                or [dataclasses.asdict(s) for s in r["stats"]] != want:
+            raise AssertionError(f"{name} ep=2: tokens, traces or "
+                                 f"TokenStats differ from ep=1's")
+        if r["launches"] or r["experts"] != E // 2:
+            raise AssertionError(f"{name} ep=2: {r['launches']} kernel "
+                                 f"launches, {r['experts']} experts held")
+    print(f"  moe: {name} (D {D}, {E} experts, {L} layers, fp32), ep=2: "
+          f"tokens, traces and TokenStats identical to ep=1's (repriced at "
+          f"2 shards); {E // 2} experts per rank; no fused_cold_ffn launch")
+    for i, r in enumerate([one] + two):
+        print(f"    {'ep=1' if i == 0 else f'ep=2 rank {i - 1}'}: wall "
+              f"{r['wall_ms']:.2f} ms/step, collectives "
+              f"{r['coll_ms_per_step']:.2f} ms/step, weights "
+              f"{r['weight_bytes'] / 2**30:.2f} GiB + serve peak "
+              f"{r['peak_bytes'] / 2**20:.1f} MiB")
+    out["moe"] = dict(wall_ms=[r["wall_ms"] for r in [one] + two],
+                      coll_ms_per_step=[r["coll_ms_per_step"]
+                                        for r in [one] + two])
+    dp = [r["dp"] for r in ranks]
+    ref = dp[0]["dp2"]
+    for i, d in enumerate(dp):
+        if d["dp2tp2"]["toks"] != ref["toks"] \
+                or d["dp2tp2"]["replicas"] != [0, 1]:
+            raise AssertionError(f"dp=2 x tp=2 rank {i}: tokens differ from "
+                                 f"dp=2's or a replica stood idle")
+    print(f"  dp=2 x tp=2 (smollm-135m fp32, 4 layers): tokens of "
+          f"{len(ref['toks'])} requests identical to dp=2 on one rank; wall "
+          f"{ref['wall_ms']:.2f} ms per replica step (dp=2) against "
+          + ", ".join(f"{d['dp2tp2']['wall_ms']:.2f}" for d in dp)
+          + " ms (dp=2 x tp=2, ranks 0-3; collectives "
+          + ", ".join(f"{d['dp2tp2']['coll_ms_per_step']:.2f}" for d in dp)
+          + " ms per step)")
+    out["dp"] = dict(dp2_wall_ms=ref["wall_ms"],
+                     grid_wall_ms=[d["dp2tp2"]["wall_ms"] for d in dp])
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase tp {out['seconds']:.1f} s; rank 0's seconds by case: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ranks[0]["seconds"].items())
+          + "; of them the same-x holds "
+          + ", ".join(f"{k} tp={n} {r['same_x_s']:.1f}"
+                      for k, *_ in TP_DENSE
+                      for n, r in ranks[0][k]["runs"].items()
+                      if "same_x_s" in r))
+    return out
+
+
 PHASES = ("kernel", "quant", "times", "gather", "serve", "parity", "api",
-          "fleet", "archs", "vlm", "moe", "plan")
+          "fleet", "archs", "vlm", "moe", "plan", "tp")
 
 
 def main(argv=None):
@@ -2314,23 +2883,36 @@ def main(argv=None):
     print(f"  build phase {time.perf_counter() - t0:.1f} s")
 
     run = set(PHASES if only is None else only)
-    max_err = phase_kernel() if "kernel" in run else None
-    q_err = phase_quant() if "quant" in run else None
-    times = phase_times() if "times" in run else None
-    g_err, g_timings = phase_gather() if "gather" in run else (None, None)
-    if "serve" in run:
-        serve = phase_serve()
-        q_serve = {sd: phase_serve(sd) for sd in QUANT}
-    if "parity" in run:
+
+    def timed(name, fn, *args):
+        """fn(*args) if phase `name` runs (else None), with its seconds."""
+        if name not in run:
+            return None
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"  [phase {name}: {time.perf_counter() - t:.1f} s]")
+        return out
+
+    def parity():
         for sd in ("fp16",) + QUANT:
             phase_parity(sd)
         phase_parity("fp16", "bamboo-7b")
-    api = phase_api() if "api" in run else None
-    fleet = phase_fleet() if "fleet" in run else None
-    archs = phase_archs() if "archs" in run else None
-    vlm_out = phase_vlm() if "vlm" in run else None
-    moe_out = phase_moe() if "moe" in run else None
-    plan_out = phase_plan(card) if "plan" in run else None
+
+    max_err = timed("kernel", phase_kernel)
+    q_err = timed("quant", phase_quant)
+    times = timed("times", phase_times)
+    g_err, g_timings = timed("gather", phase_gather) or (None, None)
+    serve, q_serve = timed("serve", lambda: (
+        phase_serve(), {sd: phase_serve(sd) for sd in QUANT})) \
+        or (None, None)
+    timed("parity", parity)
+    api = timed("api", phase_api)
+    fleet = timed("fleet", phase_fleet)
+    archs = timed("archs", phase_archs)
+    vlm_out = timed("vlm", phase_vlm)
+    moe_out = timed("moe", phase_moe)
+    plan_out = timed("plan", phase_plan, card)
+    tp_out = timed("tp", phase_tp, card)
     if run != set(PHASES):
         print(f"chip_smoke: ran phases {sorted(run)} only; no summary")
         return 0
@@ -2378,13 +2960,17 @@ def main(argv=None):
             **{f"{a} stream, calibrated plan, {m} (phase plan)":
                r["launches"]
                for a, v in plan_out.items()
-               for m, r in v["serve"].items()}},
+               for m, r in v["serve"].items()},
+            **{f"{k} stream, tp={n}, per rank (phase tp)": r["launches"]
+               for k, v in tp_out.items() if k.startswith(("smollm",
+                                                           "bamboo"))
+               for n, r in v.items()}},
         "by_model": {a: {"layers": v["layers"],
                          "launches_per_step": v["launches"] // v["steps"],
                          "by_batch": {str(b): t
                                       for b, t in v["kernels"].items()}}
                      for a, v in archs.items()},
-        "fleet": fleet, "moe": moe_out, "plan": plan_out}, {
+        "fleet": fleet, "moe": moe_out, "plan": plan_out, "tp": tp_out}, {
         "name": "fused_cold_ffn (quant mode)", "route": "cuda",
         "source": src + "fused_cold_ffn.cu",
         "replaces": "src/repro/kernels/cluster_gather_ffn.py:148",

@@ -15,6 +15,12 @@ numpy holds them as ml_dtypes' extension type, or, read back from a
 `.npy` without it, as bare 2-byte voids or their uint16 bits, so a
 leaf's declared dtype (`dtypes`, from a checkpoint's manifest) wins over
 the array's own.
+
+Over a group of ranks, `shard_params` cuts the tree to one rank's slices
+(the counterpart of the reference engine's `_shard_params` and
+`_QUANT_FFN_SPECS`), and `params_from_numpy(..., shard=, plan=)` builds
+that rank's model from them; `shard_model` does the same from a whole
+port model.
 """
 from __future__ import annotations
 
@@ -26,11 +32,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.dense import DenseModel
 from repro_torch.models.moe import MoEModel
 from repro_torch.models.modules import resolve_device
+from repro_torch.parallel import ShardLayout, shard_layout
 
 
 def _tensor(a, dtype: str = None) -> torch.Tensor:
-    """A CPU tensor of the numpy array `a`; `dtype` is the leaf's
-    declared dtype name (default: a's own)."""
+    """A CPU tensor of the numpy array `a` (a tensor passes as it is);
+    `dtype` is the leaf's declared dtype name (default: a's own)."""
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.array(a)                 # a writable, contiguous copy
     name = dtype or a.dtype.name
     if name == "bfloat16":
@@ -62,12 +71,73 @@ def _load(param: torch.nn.Parameter, a, name: str, dtype: str = None):
     param.copy_(t.to(param.dtype))
 
 
+def _take(a, axis: int, idx):
+    """a's entries `idx` along per-layer axis `axis`: a is stacked (L,
+    ...) or a sequence of per-layer arrays or tensors."""
+    if isinstance(a, (list, tuple)):
+        return [_take(t, axis - 1, idx) for t in a]
+    if isinstance(a, torch.Tensor) and not isinstance(idx, slice):
+        idx = torch.from_numpy(idx).to(a.device)
+    return a[(slice(None),) * (axis + 1) + (idx,)]
+
+
+def _shard_tree(tree, cfg: ModelConfig, layout: ShardLayout):
+    """The leaves of `tree` (the reference's layout, layer leaves stacked
+    or per layer) that `layout`'s rank holds; the rest stay whole."""
+    q0, nq, k0, nk = layout.heads
+    dh = cfg.d_head
+    layers = dict(tree["layers"])
+    attn = dict(layers["attn"])
+    for k, (lo, n) in (("wq", (q0, nq)), ("wk", (k0, nk)),
+                       ("wv", (k0, nk))):
+        attn[k] = _take(attn[k], 1, slice(lo * dh, (lo + n) * dh))
+    attn["wo"] = _take(attn["wo"], 0, slice(q0 * dh, (q0 + nq) * dh))
+    layers["attn"] = attn
+    if "moe" in layers:
+        moe = dict(layers["moe"])
+        e0, ne = layout.experts
+        moe["experts"] = _take(moe["experts"], 0, slice(e0, e0 + ne))
+        if "shared" in moe:
+            moe["shared"] = {"w": _take(moe["shared"]["w"], 0,
+                                        slice(*layout.shared))}
+        layers["moe"] = moe
+    else:
+        ids = layout.ffn.ids
+        ffn = {k: _take(v, 0, ids) for k, v in layers["ffn"].items()
+               if k in ("w", "wq", "wsc", "wout")}
+        if "pred" in layers["ffn"]:
+            pred = layers["ffn"]["pred"]
+            ffn["pred"] = {"A": pred["A"], "B": _take(pred["B"], 1, ids)}
+        layers["ffn"] = ffn
+    return dict(tree, layers=layers)
+
+
+def shard_params(tree, cfg: ModelConfig, plan, rank: int, n: int):
+    """The slices of `tree` that rank `rank` of `n` holds
+    (`parallel.shard_layout`): heads when both head counts divide n, the
+    FFN rows (`w`, the predictor's B columns and the quantized
+    containers wq / wsc / wout) every bucket of `plan` computes on the
+    rank, whole experts and shared rows for moe. Layer leaves may be
+    stacked (L, ...) arrays or per-layer sequences."""
+    return _shard_tree(tree, cfg, shard_layout(cfg, plan, rank, n))
+
+
 def params_from_numpy(tree, cfg: ModelConfig, device=None,
-                      dtypes=None) -> DenseModel:
+                      dtypes=None, shard=None, plan=None) -> DenseModel:
     """The port's model on `device` (default `cuda`) holding `tree`'s
-    weights; `dtypes` (the same nesting) declares leaves' dtypes."""
+    weights; `dtypes` (the same nesting) declares leaves' dtypes. With
+    `shard`, a ShardGroup of n > 1 ranks, the model holds only its
+    rank's slices for serving `plan` (an ExecutionPlan; moe needs
+    none)."""
     model_type = MoEModel if cfg.family == "moe" else DenseModel
-    model = model_type(cfg, resolve_device(device))
+    layout = None
+    if shard is not None and shard.size > 1:
+        if plan is None and not cfg.num_experts:
+            raise ValueError("a dense model's slice follows the plan's "
+                             "buckets: pass plan=")
+        layout = shard_layout(cfg, plan, shard.rank, shard.size)
+        tree = _shard_tree(tree, cfg, layout)
+    model = model_type(cfg, resolve_device(device), layout=layout)
 
     def load(param, *keys, layer=None):
         a, dt = _leaf(tree, dtypes, *keys)
@@ -121,10 +191,55 @@ def _load_moe(moe, load, l):
         load(moe.shared, "layers", "moe", "shared", "w", layer=l)
 
 
-def load_checkpoint(path: str, cfg: ModelConfig, device=None) -> DenseModel:
+def load_checkpoint(path: str, cfg: ModelConfig, device=None, shard=None,
+                    plan=None) -> DenseModel:
     """The port's model on `device` (default `cuda`) from a checkpoint the
     reference's `save_checkpoint` wrote (a parameter tree already
     permuted, and for int8 / int4-mixed storage quantized, to match the
-    plan it is served with)."""
+    plan it is served with); with `shard`, the rank's slices only (see
+    `params_from_numpy`)."""
     ckpt = restore_numpy(path)
-    return params_from_numpy(ckpt.tree, cfg, device, dtypes=ckpt.dtypes)
+    return params_from_numpy(ckpt.tree, cfg, device, dtypes=ckpt.dtypes,
+                             shard=shard, plan=plan)
+
+
+def model_tree(model: DenseModel) -> dict:
+    """The reference-layout tree of a whole port model, its layer leaves
+    as per-layer lists of the model's own tensors (no copy)."""
+    layers = model.layers
+    attn = {k: [getattr(l.attn, k) for l in layers]
+            for k in ("wq", "wk", "wv", "wo")}
+    if model.cfg.qk_norm:
+        attn["qk"] = {k: [getattr(l.attn, k) for l in layers]
+                      for k in ("q_norm", "k_norm")}
+    out = {"embed": model.embed, "out_norm": model.out_norm,
+           "layers": {"ln1": [l.ln1 for l in layers],
+                      "ln2": [l.ln2 for l in layers], "attn": attn}}
+    if model.lm_head is not None:
+        out["lm_head"] = model.lm_head
+    if isinstance(model, MoEModel):
+        moe = {"router": [l.moe.router for l in layers],
+               "experts": [l.moe.experts for l in layers]}
+        if layers[0].moe.shared is not None:
+            moe["shared"] = {"w": [l.moe.shared for l in layers]}
+        out["layers"]["moe"] = moe
+        return out
+    ffn = {"w": [l.ffn.w for l in layers]}
+    for k in ("wq", "wsc", "wout"):
+        if getattr(layers[0].ffn, k) is not None:
+            ffn[k] = [getattr(l.ffn, k) for l in layers]
+    if layers[0].ffn.pred_A is not None:
+        ffn["pred"] = {"A": [l.ffn.pred_A for l in layers],
+                       "B": [l.ffn.pred_B for l in layers]}
+    out["layers"]["ffn"] = ffn
+    return out
+
+
+def shard_model(model: DenseModel, plan, shard, device=None) -> DenseModel:
+    """Rank `shard.rank`'s slice of a whole port model (weights already
+    prepared for `plan`), on `device` (default the model's); the model
+    itself when the group has one rank."""
+    if shard is None or shard.size == 1:
+        return model
+    return params_from_numpy(model_tree(model), model.cfg,
+                             device or model.device, shard=shard, plan=plan)

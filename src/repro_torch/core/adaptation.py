@@ -35,6 +35,16 @@ def bucket_for(batch: int, buckets=DEFAULT_BUCKETS) -> int:
     return buckets[-1]
 
 
+def stepped_plan(plan_source: ExecutionPlan, batch: int, buckets,
+                 backend: str = None) -> HybridPlan:
+    """The plan a step of `batch` live rows runs: its bucket's, with the
+    cold-path backend overridden when `backend` is given."""
+    plan = plan_source.plan_for_batch(bucket_for(batch, buckets))
+    if backend and plan.backend != backend:
+        plan = dataclasses.replace(plan, backend=backend)
+    return plan
+
+
 def _minus(a: dict, b: dict) -> dict:
     return {k: a[k] - b[k] for k in a}
 
@@ -155,9 +165,8 @@ class BucketedDecoder:
     def executable_for(self, batch: int):
         b = bucket_for(batch, self.buckets)
         if b not in self._cache:
-            plan = self.plan_source.plan_for_batch(b)
-            if self.backend and plan.backend != self.backend:
-                plan = dataclasses.replace(plan, backend=self.backend)
+            plan = stepped_plan(self.plan_source, b, self.buckets,
+                                self.backend)
             step = self.make_step(plan)
             if self.graphs:
                 step = GraphedStep(step, self.graph_pool)

@@ -4,6 +4,13 @@ the FFN block (dense or PowerInfer-2 hybrid).
 Counterpart of `repro/models/blocks.py`. Parameters keep the reference's
 layouts (wq (d, H*dh), ffn w (N, R, D), predictor A (D, r) / B (r, N)) so
 its weights load unchanged; they are frozen (`requires_grad=False`).
+
+Over a group of ranks (`repro_torch.parallel`) a module is built at its
+rank's slice (`ShardLayout`): attention holds its heads (`wq`/`wk`/`wv`
+by columns, `wo` by rows, `attn_spec`'s split) when both head counts
+divide the ranks, and all of them otherwise; the FFN holds its rows
+(`FFN.rows`). The functions below take the group as `shard` and add the
+one fp32 all-reduce each split needs.
 """
 from __future__ import annotations
 
@@ -27,9 +34,14 @@ def _param(shape, dtype, device) -> nn.Parameter:
 # ------------------------------------------------------------ attention ----
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    """q, k, v and output projections of the heads this rank holds (all
+    of them without a layout)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, layout=None):
         super().__init__()
         h, dh, kv, d = cfg.num_heads, cfg.d_head, cfg.num_kv_heads, cfg.d_model
+        if layout is not None:
+            h, kv = layout.heads[1], layout.heads[3]
         self.wq = _param((d, h * dh), dtype, device)
         self.wk = _param((d, kv * dh), dtype, device)
         self.wv = _param((d, kv * dh), dtype, device)
@@ -48,8 +60,8 @@ class Attention(nn.Module):
 def _qkv(p: Attention, x, cfg: ModelConfig, angles):
     """Project + rope. x (B,S,D) -> q (B,S,H,dh), k/v (B,S,KV,dh)."""
     B, S, _ = x.shape
-    h, dh = cfg.num_heads, cfg.d_head
-    kv = p.wk.shape[1] // dh
+    dh = cfg.d_head
+    h, kv = p.wq.shape[1] // dh, p.wk.shape[1] // dh
     q = (x @ p.wq).reshape(B, S, h, dh)
     k = (x @ p.wk).reshape(B, S, kv, dh)
     v = (x @ p.wv).reshape(B, S, kv, dh)
@@ -60,17 +72,27 @@ def _qkv(p: Attention, x, cfg: ModelConfig, angles):
     return q, k, v
 
 
+def _out(p: Attention, o, cfg: ModelConfig, shard):
+    """o @ wo; the heads' partial sums joined in fp32 when this rank
+    holds a share of the heads."""
+    y = o @ p.wo
+    if shard is not None and p.wq.shape[1] < cfg.num_heads * cfg.d_head:
+        y = shard.all_reduce_f32(y)
+    return y
+
+
 def attn_full(p: Attention, x, cfg: ModelConfig, angles, *, causal=True,
-              window=0):
-    """Full-sequence self attention. Returns (out, (k, v)) for caching."""
+              window=0, shard=None):
+    """Full-sequence self attention. Returns (out, (k, v)) for caching
+    (k, v of this rank's kv heads)."""
     q, k, v = _qkv(p, x, cfg, angles)
     o = flash_attention(q, k, v, causal=causal, window=window)
     B, S = x.shape[:2]
-    return o.reshape(B, S, -1) @ p.wo, (k, v)
+    return _out(p, o.reshape(B, S, -1), cfg, shard), (k, v)
 
 
 def attn_decode(p: Attention, x, cfg: ModelConfig, angles, k_cache, v_cache,
-                kv_pos, pos, *, window=0):
+                kv_pos, pos, *, window=0, shard=None):
     """One-token self attention vs cache. x (B,1,D); pos (B,) absolute.
 
     Writes the new token's k/v (RoPE pre-applied) into its slot in place,
@@ -80,7 +102,8 @@ def attn_decode(p: Attention, x, cfg: ModelConfig, angles, k_cache, v_cache,
     q, k_new, v_new = _qkv(p, x, cfg, angles)
     k_cache, v_cache = write_kv(k_cache, v_cache, k_new, v_new, pos)
     o = decode_attention(q, k_cache, v_cache, kv_pos, pos, window=window)
-    return o.reshape(*x.shape[:2], -1) @ p.wo, k_cache, v_cache
+    return _out(p, o.reshape(*x.shape[:2], -1), cfg, shard), k_cache, \
+        v_cache
 
 
 # ------------------------------------------------------------------ FFN ----
@@ -93,11 +116,17 @@ class FFN(nn.Module):
     the buffers wq (N, R, D) int8 codes, wsc (N, R) fp32 per-row scales
     and, for int4-mixed, wout (N, R, D) fp16 outliers; they stay None for
     fp16 storage. (Attention's wq is the query projection; these live on
-    the FFN module.)"""
+    the FFN module.)
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    With a layout, every N-sized dim holds this rank's rows only and
+    `rows` (a NeuronRows) maps global neuron ids to them; A is whole."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, layout=None):
         super().__init__()
+        self.rows = None if layout is None else layout.ffn
         N, R, D = cfg.d_ff, ffn_rows(cfg.activation), cfg.d_model
+        if self.rows is not None:
+            N = len(self.rows.ids)
         self.w = _param((N, R, D), dtype, device)
         rank = cfg.sparse_ffn.predictor_rank if cfg.sparse_ffn.enabled else 0
         self.pred_A = _param((D, rank), dtype, device) if rank else None
@@ -126,7 +155,7 @@ class FFN(nn.Module):
 
 
 def apply_ffn_block(p: FFN, x, cfg: ModelConfig, plan, return_indices=False,
-                    active_mask=None):
+                    active_mask=None, shard=None):
     return ffn_apply(p.w, p.pred, x, cfg.activation, cfg.sparse_ffn, plan,
                      return_indices=return_indices, active_mask=active_mask,
-                     quant=p.quant)
+                     quant=p.quant, shard=shard, rows=p.rows)

@@ -4,6 +4,12 @@ serving path.
 Counterpart of `repro/models/dense.py`. The model is an `nn.Module`
 holding the parameters; prefill and decode are plain functions over it,
 and the reference's layer `scan` is a Python loop.
+
+Tensor parallel: a model built with a `ShardLayout` holds one rank's
+slice (`bridge.params_from_numpy(..., shard=...)`), and prefill and
+decode take that rank's group as `shard`; embedding and the (tied)
+lm_head stay whole on every rank, so every rank computes the same
+logits.
 """
 from __future__ import annotations
 
@@ -22,24 +28,24 @@ from repro_torch.models.modules import (
 
 
 class Layer(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device, layout=None):
         super().__init__()
         self.ln1 = blocks._param((cfg.d_model,), dtype, device)
-        self.attn = blocks.Attention(cfg, dtype, device)
+        self.attn = blocks.Attention(cfg, dtype, device, layout)
         self.ln2 = blocks._param((cfg.d_model,), dtype, device)
-        self.ffn = blocks.FFN(cfg, dtype, device)
+        self.ffn = blocks.FFN(cfg, dtype, device, layout)
 
     def init_weights(self, generator: torch.Generator):
         self.attn.init_weights(generator)
         self.ffn.init_weights(generator)
 
     def ffn_block(self, x, cfg: ModelConfig, plan, return_indices=False,
-                  active_mask=None):
+                  active_mask=None, shard=None):
         """The layer's FFN on its normed input: the hybrid FFN under a
         plan, dense without one. With return_indices, (y, trace)."""
         return blocks.apply_ffn_block(self.ffn, x, cfg, plan,
                                       return_indices=return_indices,
-                                      active_mask=active_mask)
+                                      active_mask=active_mask, shard=shard)
 
 
 class DenseModel(nn.Module):
@@ -49,11 +55,14 @@ class DenseModel(nn.Module):
 
     The layer walk below (prefill, decode) reaches the FFN only through
     `layer.ffn_block`, so a subclass with another `layer_type` (the MoE
-    model, `models/moe.py`) serves through the same functions."""
+    model, `models/moe.py`) serves through the same functions.
+
+    `layout` (a `parallel.ShardLayout`) sizes the layers at one rank's
+    slice; None holds the whole model."""
 
     layer_type = Layer
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, layout=None):
         super().__init__()
         if cfg.sliding_window:
             raise NotImplementedError(
@@ -63,7 +72,8 @@ class DenseModel(nn.Module):
         self.embed = blocks._param((cfg.vocab_padded, cfg.d_model), dtype,
                                    device)
         self.out_norm = blocks._param((cfg.d_model,), dtype, device)
-        self.layers = nn.ModuleList(self.layer_type(cfg, dtype, device)
+        self.layers = nn.ModuleList(self.layer_type(cfg, dtype, device,
+                                                    layout)
                                     for _ in range(cfg.num_layers))
         self.lm_head = None if cfg.tie_embeddings else blocks._param(
             (cfg.d_model, cfg.vocab_padded), dtype, device)
@@ -71,6 +81,12 @@ class DenseModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    @property
+    def kv_heads(self) -> int:
+        """The kv heads this model's caches hold (a rank's share when
+        attention is head-sharded)."""
+        return self.layers[0].attn.wk.shape[1] // self.cfg.d_head
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
@@ -91,7 +107,7 @@ class DenseModel(nn.Module):
     def init_cache(self, batch: int, seq_len: int):
         cfg = self.cfg
         return init_full_cache(cfg.num_layers, batch, seq_len,
-                               cfg.num_kv_heads, cfg.d_head,
+                               self.kv_heads, cfg.d_head,
                                dtype_of(cfg.param_dtype), self.device)
 
 
@@ -134,17 +150,17 @@ def lm_logits(model: DenseModel, x):
 
 
 def forward_from_embeds(model: DenseModel, x, angles, *, plan=None,
-                        collect_kv=False):
+                        collect_kv=False, shard=None):
     """Run the layer stack over full-sequence embeddings."""
     cfg = model.cfg
     kvs = []
     for layer in model.layers:
         a, kv = blocks.attn_full(layer.attn,
                                  rms_norm(x, layer.ln1, cfg.norm_eps), cfg,
-                                 angles, causal=True)
+                                 angles, causal=True, shard=shard)
         x = x + a
         x = x + layer.ffn_block(rms_norm(x, layer.ln2, cfg.norm_eps), cfg,
-                                plan)
+                                plan, shard=shard)
         if collect_kv:
             kvs.append(kv)
     return x, kvs
@@ -154,12 +170,14 @@ def forward_from_embeds(model: DenseModel, x, angles, *, plan=None,
 
 @torch.no_grad()
 def prefill_from_embeds(model: DenseModel, x, angles,
-                        max_len: Optional[int] = None):
+                        max_len: Optional[int] = None, shard=None):
     """Dense prefill of embeddings x (B, S, D) under RoPE `angles`.
     Returns (logits (B, 1, V) of the last position, cache padded to
-    `max_len` slots with kv_pos = -1 in the padding)."""
+    `max_len` slots with kv_pos = -1 in the padding). `shard`: the
+    rank's group when the model is one rank's slice."""
     B, S = x.shape[:2]
-    x, kvs = forward_from_embeds(model, x, angles, collect_kv=True)
+    x, kvs = forward_from_embeds(model, x, angles, collect_kv=True,
+                                 shard=shard)
     T = max_len or S
     cache = model.init_cache(B, T)
     for l, (k, v) in enumerate(kvs):
@@ -172,19 +190,20 @@ def prefill_from_embeds(model: DenseModel, x, angles,
 
 
 @torch.no_grad()
-def prefill(model: DenseModel, tokens, max_len: Optional[int] = None):
+def prefill(model: DenseModel, tokens, max_len: Optional[int] = None,
+            shard=None):
     """Dense prefill of tokens (B, S); see `prefill_from_embeds`."""
     cfg = model.cfg
     x = embed_tokens(model, tokens)
     pos = torch.arange(x.shape[1], device=x.device)
     angles = rope_angles(pos, cfg.d_head // 2, cfg.rope_theta)
-    return prefill_from_embeds(model, x, angles, max_len)
+    return prefill_from_embeds(model, x, angles, max_len, shard)
 
 
 @torch.no_grad()
 def decode_step(model: DenseModel, tokens, cache,
                 plan: Optional[HybridPlan] = None, active_mask=None,
-                collect_indices: bool = False, angles_fn=None):
+                collect_indices: bool = False, angles_fn=None, shard=None):
     """tokens (B, 1) -> (logits (B, 1, V), cache[, cluster_ids]).
 
     The cache is updated in place, every tensor keeping its storage (a
@@ -196,7 +215,9 @@ def decode_step(model: DenseModel, tokens, cache,
     dense layers, the MoE layers' (L, E) kept-dispatch counts or their
     two-level (L, E, 1+ncc) form.
     angles_fn(pos) gives the RoPE angles (B, 1, dh/2) of the positions
-    pos (B,) (the vlm's M-RoPE); default plain 1-D RoPE."""
+    pos (B,) (the vlm's M-RoPE); default plain 1-D RoPE. shard: the
+    rank's group when the model is one rank's slice (the trace is then
+    the whole group's, gathered)."""
     cfg = model.cfg
     pos = cache["length"]                              # (B,)
     x = embed_tokens(model, tokens)
@@ -207,11 +228,11 @@ def decode_step(model: DenseModel, tokens, cache,
     for l, layer in enumerate(model.layers):
         a, _, _ = blocks.attn_decode(
             layer.attn, rms_norm(x, layer.ln1, cfg.norm_eps), cfg, angles,
-            cache["k"][l], cache["v"][l], kv_pos, pos)
+            cache["k"][l], cache["v"][l], kv_pos, pos, shard=shard)
         x = x + a
         f = layer.ffn_block(rms_norm(x, layer.ln2, cfg.norm_eps), cfg, plan,
                             return_indices=collect_indices,
-                            active_mask=active_mask)
+                            active_mask=active_mask, shard=shard)
         if collect_indices:
             f, cidx = f
             cidxs.append(cidx)
@@ -226,11 +247,12 @@ def decode_step(model: DenseModel, tokens, cache,
 
 
 def make_decode_step(cfg: ModelConfig, collect_indices: bool = False,
-                     angles_fn=None):
+                     angles_fn=None, shard=None):
     """The serving decode callable (model, tokens, cache, plan,
-    active_mask) -> (logits, cache[, trace])."""
+    active_mask) -> (logits, cache[, trace]), over `shard`'s ranks when
+    given."""
     def step(model, tokens, cache, plan=None, active_mask=None):
         return decode_step(model, tokens, cache, plan, active_mask,
                            collect_indices=collect_indices,
-                           angles_fn=angles_fn)
+                           angles_fn=angles_fn, shard=shard)
     return step

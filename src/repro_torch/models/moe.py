@@ -23,8 +23,16 @@ trace whose columns past the first count the real activations of each
 intra-expert cold cluster, thresholded off the unchanged dense expert
 activations, so decode stays token-identical to whole-expert decode.
 
-Not here: the reference's expert-parallel `_moe_ep_shard_map` (a mesh of
-several devices).
+Expert parallel (`_moe_ep_shard_map`'s scheme): over a group of n ranks
+with `moe_shard_mode == "ep"` and E % n == 0, rank s holds experts
+[s*E/n, (s+1)*E/n) and its share of the shared experts' rows (the hot
+split of `parallel.hot_range`). Routing runs whole on every rank; each
+rank dispatches only its experts' entries into an (E/n, C, D) buffer,
+runs their GEMMs, combines a partial output, and one fp32 all-reduce
+joins the partials with the shared experts'. The two-level trace's
+(E/n, 1+ncc) blocks are gathered in expert order. When E % n != 0 every
+rank holds and runs every expert; `moe_shard_mode == "tp"` over n > 1
+ranks raises.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ from repro_torch.core.sparse_ffn import ffn_dense, ffn_rows
 from repro_torch.models import blocks, dense
 from repro_torch.models.attention import rope_angles
 from repro_torch.models.modules import activation_fn, dense_init
+from repro_torch.parallel import expert_parallel
 
 
 # ------------------------------------------------------------- MoE FFN ----
@@ -47,16 +56,20 @@ from repro_torch.models.modules import activation_fn, dense_init
 class MoEFFN(nn.Module):
     """router (D, E), routed experts (E, f, R, D) and, when the config
     has shared experts, their bundled weights `shared` (n_sh*f, R, D)
-    (the reference's `shared.w`)."""
+    (the reference's `shared.w`). With a layout, `experts` holds the
+    rank's experts and `shared` its rows; the router is whole."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device, layout=None):
         super().__init__()
         E, f, D = cfg.num_experts, cfg.d_ff, cfg.d_model
         R = ffn_rows(cfg.activation)
+        n_sh = cfg.num_shared_experts * f
+        e_loc = E if layout is None else layout.experts[1]
+        if layout is not None:
+            n_sh = layout.shared[1] - layout.shared[0]
         self.router = blocks._param((D, E), dtype, device)
-        self.experts = blocks._param((E, f, R, D), dtype, device)
-        self.shared = blocks._param(
-            (cfg.num_shared_experts * f, R, D), dtype, device) \
+        self.experts = blocks._param((e_loc, f, R, D), dtype, device)
+        self.shared = blocks._param((n_sh, R, D), dtype, device) \
             if cfg.num_shared_experts else None
 
     @torch.no_grad()
@@ -188,9 +201,56 @@ def _expert_gemm(a, w):
     return y.reshape(E, G, C, -1).transpose(0, 1)
 
 
+def _experts_ffn(buf, w, activation: str):
+    """The experts' gated FFN over their dispatch buffers: buf (G, E, C,
+    D), w (E, f, R, D) -> (activations h (G, E, C, f), outputs (G, E, C,
+    D))."""
+    act = activation_fn(activation)
+    g = _expert_gemm(buf, w[:, :, 0].transpose(1, 2))
+    if w.shape[2] == 3:
+        h = act(g) * _expert_gemm(buf, w[:, :, 1].transpose(1, 2))
+    else:
+        h = act(g)
+    return h, _expert_gemm(h, w[:, :, -1])
+
+
+def _moe_ep(moe: MoEFFN, xt, cfg: ModelConfig, C: int, mask, plan,
+            collect_trace: bool, shard):
+    """Expert-parallel dispatch over `shard`'s n ranks (module
+    docstring); `moe` holds this rank's experts and shared rows. The
+    routing, the dispatch buffer and the combine are the single group's;
+    only this rank's experts' slots are computed, the others' outputs
+    stay 0. Returns ((T, D) output, aux, trace or None)."""
+    T, D = xt.shape
+    E = cfg.num_experts
+    e_loc = E // shard.size
+    e0 = shard.rank * e_loc
+    if moe.experts.shape[0] != e_loc:
+        raise ValueError(f"expert parallel over {shard.size} ranks: the "
+                         f"layer holds {moe.experts.shape[0]} experts, "
+                         f"not {e_loc}")
+    buf, meta, aux, counts = _dispatch_group(xt, moe.router, cfg, C, mask)
+    h, yl = _experts_ffn(buf[None, e0:e0 + e_loc], moe.experts,
+                         cfg.activation)
+    yb = torch.zeros_like(buf)
+    yb[e0:e0 + e_loc] = yl[0]
+    y = _combine_group(yb.reshape(E * C, D), *meta).float()
+    if moe.shared is not None and moe.shared.shape[0]:   # its shared rows
+        y += ffn_dense(moe.shared, xt, cfg.activation).float()
+    y = shard.all_reduce_f32(y).to(xt.dtype)
+    trace = counts if collect_trace else None
+    if collect_trace and _two_level_trace(cfg, plan):
+        cold = _cold_cluster_counts(h, cfg, plan.n_expert_hot,
+                                    plan.cluster_size)
+        blk = torch.cat([counts[e0:e0 + e_loc, None], cold], dim=1)
+        trace = shard.all_gather_ids(blk.to(torch.int32))
+    return y, aux, trace
+
+
 def apply_moe_ffn(moe: MoEFFN, x, cfg: ModelConfig,
                   plan: Optional[HybridPlan] = None,
-                  active_mask=None, collect_trace: bool = False):
+                  active_mask=None, collect_trace: bool = False,
+                  shard=None):
     """x (..., D) -> ((..., D), aux[, trace]), over T = x.numel() / D
     tokens.
 
@@ -200,7 +260,14 @@ def apply_moe_ffn(moe: MoEFFN, x, cfg: ModelConfig,
     dispatch (freed KV-arena lanes); they neither consume capacity nor
     appear in the trace. collect_trace=True also returns the per-expert
     kept counts (E,) int32, or with a two-level plan the (E, 1+ncc)
-    form. The expert compute never depends on the plan."""
+    form. The expert compute never depends on the plan.
+
+    shard: the rank's group; expert parallel over it when
+    `expert_parallel(cfg, n)` (one dispatch group only)."""
+    if shard is not None and shard.size > 1 and cfg.moe_shard_mode != "ep":
+        raise ValueError(
+            f"{cfg.name}: moe_shard_mode={cfg.moe_shard_mode!r} over "
+            f"{shard.size} ranks; only expert parallelism ('ep') is served")
     shape = x.shape
     D = shape[-1]
     xt = x.reshape(-1, D)                                   # (T, D)
@@ -213,18 +280,19 @@ def apply_moe_ffn(moe: MoEFFN, x, cfg: ModelConfig,
     C = _capacity(Tg, k, E, cfg.moe_capacity_factor)
     mask = torch.ones(T, dtype=torch.bool, device=x.device) \
         if active_mask is None else active_mask.reshape(-1)
+    if shard is not None and expert_parallel(cfg, shard.size):
+        if G != 1:
+            raise ValueError(f"expert parallel dispatch runs one group, "
+                             f"not moe_dispatch_groups={G}")
+        y, aux, trace = _moe_ep(moe, xt, cfg, C, mask, plan, collect_trace,
+                                shard)
+        y = y.reshape(shape)
+        return (y, aux, trace) if collect_trace else (y, aux)
     groups = [_dispatch_group(xt[g * Tg:(g + 1) * Tg], moe.router, cfg, C,
                               mask[g * Tg:(g + 1) * Tg]) for g in range(G)]
     buf = torch.stack([r[0] for r in groups])               # (G, E, C, D)
 
-    w = moe.experts                                         # (E, f, R, D)
-    act = activation_fn(cfg.activation)
-    g = _expert_gemm(buf, w[:, :, 0].transpose(1, 2))
-    if w.shape[2] == 3:
-        h = act(g) * _expert_gemm(buf, w[:, :, 1].transpose(1, 2))
-    else:
-        h = act(g)
-    yb = _expert_gemm(h, w[:, :, -1])                       # (G, E, C, D)
+    h, yb = _experts_ffn(buf, moe.experts, cfg.activation)  # (G, E, C, D)
     y = torch.cat([_combine_group(yb[i].reshape(E * C, D), *r[1])
                    for i, r in enumerate(groups)])
     aux = torch.stack([r[2] for r in groups]).mean()
@@ -246,24 +314,24 @@ def apply_moe_ffn(moe: MoEFFN, x, cfg: ModelConfig,
 # --------------------------------------------------------------- model ----
 
 class MoELayer(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device, layout=None):
         super().__init__()
         self.ln1 = blocks._param((cfg.d_model,), dtype, device)
-        self.attn = blocks.Attention(cfg, dtype, device)
+        self.attn = blocks.Attention(cfg, dtype, device, layout)
         self.ln2 = blocks._param((cfg.d_model,), dtype, device)
-        self.moe = MoEFFN(cfg, dtype, device)
+        self.moe = MoEFFN(cfg, dtype, device, layout)
 
     def init_weights(self, generator: torch.Generator):
         self.attn.init_weights(generator)
         self.moe.init_weights(generator)
 
     def ffn_block(self, x, cfg: ModelConfig, plan, return_indices=False,
-                  active_mask=None):
+                  active_mask=None, shard=None):
         """apply_moe_ffn without the aux loss; the plan only shapes the
         trace."""
         out = apply_moe_ffn(self.moe, x, cfg, plan=plan,
                             active_mask=active_mask,
-                            collect_trace=return_indices)
+                            collect_trace=return_indices, shard=shard)
         return (out[0], out[2]) if return_indices else out[0]
 
 

@@ -79,30 +79,33 @@ def decode_angles(cfg: ModelConfig, pos):
 
 @torch.no_grad()
 def forward(model: dense.DenseModel, tokens, patch_embeds,
-            plan: Optional[HybridPlan] = None):
+            plan: Optional[HybridPlan] = None, shard=None):
     """Logits (B, P + S_text, V) of the whole [image ; text] sequence."""
     x = _embed(model, tokens, patch_embeds)
     B, S = x.shape[:2]
     x, _ = dense.forward_from_embeds(
-        model, x, _prefill_angles(model.cfg, B, S, x.device), plan=plan)
+        model, x, _prefill_angles(model.cfg, B, S, x.device), plan=plan,
+        shard=shard)
     return dense.lm_logits(model, x)
 
 
 @torch.no_grad()
 def prefill(model: dense.DenseModel, tokens, patch_embeds,
-            max_len: Optional[int] = None):
+            max_len: Optional[int] = None, shard=None):
     """Prefill of patch_embeds (B, P, D) then tokens (B, S_text), with
     M-RoPE. Returns (logits (B, 1, V) of the last position, cache of
-    `max_len` slots, default P + S_text)."""
+    `max_len` slots, default P + S_text). `shard` as in dense.prefill."""
     x = _embed(model, tokens, patch_embeds)
     B, S = x.shape[:2]
     return dense.prefill_from_embeds(
-        model, x, _prefill_angles(model.cfg, B, S, x.device), max_len)
+        model, x, _prefill_angles(model.cfg, B, S, x.device), max_len,
+        shard)
 
 
-def make_decode_step(cfg: ModelConfig, collect_indices: bool = False):
+def make_decode_step(cfg: ModelConfig, collect_indices: bool = False,
+                     shard=None):
     """The decode callable (model, tokens, cache, plan, active_mask) ->
     (logits, cache[, trace]) under M-RoPE positions."""
     return dense.make_decode_step(
         cfg, collect_indices=collect_indices,
-        angles_fn=lambda pos: decode_angles(cfg, pos))
+        angles_fn=lambda pos: decode_angles(cfg, pos), shard=shard)

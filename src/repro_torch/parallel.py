@@ -1,0 +1,356 @@
+"""Tensor, expert and data parallelism over `torch.distributed`.
+
+Counterpart of `repro/sharding.py` and of the serving parts of
+`repro/launch/mesh.py` (`make_serving_mesh`, `replica_submeshes`,
+`dispatch_groups`). The reference shards over a JAX mesh; here each rank
+is a process holding its own slice of the weights, and a `ShardGroup`
+(its rank, the group's size, the process group and the device) is what
+the model code receives where the reference reads the mesh:
+
+* the cold path of the hybrid FFN splits by whole groups when the plan's
+  groups divide the ranks (`cold_range`), and otherwise runs replicated;
+  the hot prefix splits as the storage plane prices it (`hot_range`);
+  one fp32 all-reduce per layer joins the partial outputs and the ranks'
+  cluster ids are gathered in rank order (`core/sparse_ffn.py`);
+* attention splits by heads when the heads and the kv heads divide the
+  ranks, with one fp32 all-reduce after `wo` (`models/blocks.py`);
+* moe splits by whole experts under `moe_shard_mode == "ep"`
+  (`models/moe.py`);
+* dp replicas each run on their own group of ranks (`replica_groups`).
+
+A group of size 1 takes the single-device code path and makes no
+collective call. `spawn` starts the ranks of one host as processes
+(gloo, a `file://` rendezvous in a fresh temporary directory, a timeout
+on every collective and on the join), so several runs of it never
+contend for a port.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import queue
+import shutil
+import tempfile
+import time
+import traceback
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+__all__ = ["ShardGroup", "LOCAL", "NeuronRows", "ShardLayout", "hot_range",
+           "cold_range", "ffn_ranges", "shard_layout", "replica_groups",
+           "init_world", "spawn"]
+
+# seconds a collective may wait for its peers before it raises
+COLLECTIVE_TIMEOUT_S = 300.0
+
+
+# --------------------------------------------------------------- groups ----
+
+@dataclass
+class ShardGroup:
+    """One rank's view of a group of ranks: its rank in the group (None
+    when this process is not a member), the group's size, the
+    `torch.distributed` process group, the device its tensors live on
+    and the global ranks of the group in group order. `calls` counts
+    the collectives it made (a plain counter: nothing waits on the
+    device for it)."""
+    rank: Optional[int]
+    size: int
+    group: object = None
+    device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    ranks: tuple = (0,)
+    calls: int = 0
+
+    @property
+    def member(self) -> bool:
+        return self.rank is not None
+
+    def all_reduce_f32(self, y: torch.Tensor) -> torch.Tensor:
+        """The sum of `y` over the group, in fp32, cast back to y's dtype
+        (the reference's psum of an fp32 cast)."""
+        if self.size == 1:
+            return y
+        t = y.to(torch.float32, copy=True)
+        dist.all_reduce(t, group=self.group)
+        self.calls += 1
+        return t.to(y.dtype)
+
+    def all_gather_ids(self, idx: torch.Tensor) -> torch.Tensor:
+        """Each rank's (g, ...) ids stacked in rank order -> (size * g,
+        ...), gathered on the host (the ids are read there anyway) and
+        returned on idx's device."""
+        if self.size == 1:
+            return idx
+        t = idx.cpu()
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t, group=self.group)
+        self.calls += 1
+        return torch.cat(parts).to(idx.device)
+
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """t from the group's rank `src` to every rank, in place."""
+        if self.size == 1:
+            return t
+        dist.broadcast(t, src=self.ranks[src], group=self.group)
+        self.calls += 1
+        return t
+
+    def broadcast_object(self, obj, src: int = 0):
+        """A picklable object from the group's rank `src` to every rank
+        (the other ranks pass None)."""
+        if self.size == 1:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=self.ranks[src],
+                                   group=self.group)
+        self.calls += 1
+        return box[0]
+
+
+# the group of one rank: the single-device path, no collective
+LOCAL = ShardGroup(0, 1)
+
+
+def replica_groups(world: ShardGroup, dp: int, tp: int) -> list:
+    """One ShardGroup per dp replica, replica r on the ranks [r*tp,
+    (r+1)*tp) of `world` (the counterpart of `replica_submeshes`: each
+    replica keeps its own row of ranks). Every rank of `world` must call
+    this, in the same order, since creating a group is collective; a
+    rank outside replica r gets that replica's group with rank None."""
+    if dp * tp != world.size:
+        raise ValueError(f"dp={dp} x tp={tp} does not fill a world of "
+                         f"{world.size} ranks")
+    out = []
+    me = world.ranks[world.rank]
+    for r in range(dp):
+        ranks = tuple(world.ranks[r * tp:(r + 1) * tp])
+        pg = dist.new_group(list(ranks), backend="gloo",
+                            timeout=_timeout()) if tp > 1 else None
+        out.append(ShardGroup(ranks.index(me) if me in ranks else None,
+                              tp, pg, world.device, ranks))
+    return out
+
+
+# ----------------------------------------------------------- the layout ----
+
+def hot_range(n_hot: int, rank: int, n: int) -> tuple:
+    """The hot neurons rank owns: i with (i*n)//n_hot == rank, the split
+    the storage plane prices (`FFNStorageView.owner_of`)."""
+    return (-(-rank * n_hot // n), -(-(rank + 1) * n_hot // n))
+
+
+def cold_split(plan, n: int) -> bool:
+    """True when the plan's groups divide the ranks: each rank then owns
+    G/n whole groups of the cold region (`_use_shard_map`)."""
+    return n > 1 and plan.groups % n == 0
+
+
+def cold_range(plan, n_neurons: int, rank: int, n: int) -> tuple:
+    """The cold neurons rank computes: its G/n whole groups when they
+    divide the ranks, else the whole cold region (replicated)."""
+    n_hot = plan.n_hot
+    if not cold_split(plan, n):
+        return (n_hot, n_neurons)
+    width = (n_neurons - n_hot) // plan.groups * (plan.groups // n)
+    return (n_hot + rank * width, n_hot + (rank + 1) * width)
+
+
+def ffn_ranges(plan, n_neurons: int, rank: int, n: int) -> list:
+    """The global neuron ranges rank computes in a decode step under
+    `plan`: its hot slice and its cold slice."""
+    return [hot_range(plan.n_hot, rank, n),
+            cold_range(plan, n_neurons, rank, n)]
+
+
+def dense_ranges(plan, n_neurons: int, rank: int, n: int) -> list:
+    """The rank's slice of the dense (prefill) FFN: the hot slice of
+    `plan` and an n-th of its cold region, a subset of the ranges the
+    rank holds for that plan."""
+    n_hot = plan.n_hot
+    n_cold = n_neurons - n_hot
+    return [hot_range(n_hot, rank, n),
+            (n_hot + rank * n_cold // n, n_hot + (rank + 1) * n_cold // n)]
+
+
+def _merge(ranges) -> list:
+    out = []
+    for lo, hi in sorted(r for r in ranges if r[1] > r[0]):
+        if out and lo <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], hi))
+        else:
+            out.append((lo, hi))
+    return out
+
+
+class NeuronRows:
+    """The rows of a layer's (N, R, D) FFN bundle that one rank holds:
+    sorted, disjoint global ranges, stored back to back in the rank's
+    local tensor. Every range a decode step of the plan's buckets
+    computes lies inside one of them, so `local(lo, hi)` is a view.
+    `dense` is the rank's slice of the prefill FFN."""
+
+    def __init__(self, ranges, n_neurons: int, dense):
+        self.ranges = _merge(ranges)
+        self.n_neurons = n_neurons
+        self.dense = [r for r in dense if r[1] > r[0]]
+        self.starts = np.cumsum([0] + [hi - lo for lo, hi in self.ranges])
+
+    @property
+    def ids(self) -> np.ndarray:
+        """The global ids of the local rows, in order."""
+        return np.concatenate([np.arange(lo, hi) for lo, hi in self.ranges]
+                              or [np.zeros(0, np.int64)])
+
+    def local(self, lo: int, hi: int) -> slice:
+        """The local rows of global rows [lo, hi)."""
+        for (a, b), s in zip(self.ranges, self.starts):
+            if a <= lo and hi <= b:
+                return slice(int(s + lo - a), int(s + hi - a))
+        if hi <= lo:
+            return slice(0, 0)
+        raise ValueError(f"rows [{lo}, {hi}) are not held by this rank "
+                         f"(it holds {self.ranges})")
+
+
+@dataclass(frozen=True)
+class ShardLayout:
+    """What one rank holds of the model: its attention heads (all of them
+    unless both head counts divide the ranks), its FFN rows (dense and
+    vlm) and its routed experts and shared rows (moe)."""
+    heads: tuple            # (first q head, q heads, first kv head, kv heads)
+    ffn: Optional[NeuronRows] = None
+    experts: tuple = (0, 0)  # (first expert, experts)
+    shared: tuple = (0, 0)   # shared-expert rows [lo, hi)
+
+
+def attention_sharded(cfg, n: int) -> bool:
+    """Heads split over n ranks when both head counts divide n (the
+    plane's `_attn_frac` rule); otherwise attention is replicated."""
+    return n > 1 and cfg.num_heads % n == 0 and cfg.num_kv_heads % n == 0
+
+
+def expert_parallel(cfg, n: int) -> bool:
+    """Whole experts split over n ranks: moe_shard_mode 'ep' and E % n
+    == 0 (`_use_ep_shard_map`)."""
+    return n > 1 and cfg.moe_shard_mode == "ep" and \
+        cfg.num_experts % n == 0
+
+
+def shard_layout(cfg, plan, rank: int, n: int) -> ShardLayout:
+    """Rank `rank` of `n`'s slice of `cfg`'s model served with `plan`
+    (an ExecutionPlan): the counterpart of the reference's param specs
+    filtered by `_filter_spec` (a dim that n does not divide
+    replicates). Its FFN rows are the union, over every bucket plan, of
+    the rows a decode step computes (`ffn_ranges`), so each bucket's hot
+    and cold slices are views of the local bundle."""
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    if attention_sharded(cfg, n):
+        heads = (rank * h // n, h // n, rank * kv // n, kv // n)
+    else:
+        heads = (0, h, 0, kv)
+    if cfg.num_experts:
+        if n > 1 and cfg.moe_shard_mode != "ep":
+            raise ValueError(
+                f"{cfg.name}: moe_shard_mode={cfg.moe_shard_mode!r} over "
+                f"{n} ranks; only expert parallelism ('ep') is served")
+        E, S = cfg.num_experts, cfg.num_shared_experts * cfg.d_ff
+        if expert_parallel(cfg, n):
+            experts = (rank * E // n, E // n)
+            shared = hot_range(S, rank, n)
+        else:
+            experts, shared = (0, E), (0, S)
+        return ShardLayout(heads, experts=experts, shared=shared)
+    N = cfg.d_ff
+    plans = list(plan.plans.values())
+    ranges = [r for p in plans for r in ffn_ranges(p, N, rank, n)]
+    dense = dense_ranges(plan.plan_for_batch(1), N, rank, n)
+    return ShardLayout(heads, ffn=NeuronRows(ranges + dense, N, dense))
+
+
+# -------------------------------------------------------------- launch ----
+
+def _timeout() -> datetime.timedelta:
+    return datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S)
+
+
+def init_world(rank: int, world: int, init_method: str,
+               device=None) -> ShardGroup:
+    """Join a gloo group of `world` ranks at `init_method` (`file://`
+    path or `tcp://host:port`) as `rank`; the world's ShardGroup."""
+    dist.init_process_group("gloo", init_method=init_method, rank=rank,
+                            world_size=world, timeout=_timeout())
+    return ShardGroup(rank, world, dist.group.WORLD,
+                      torch.device(device or "cpu"), tuple(range(world)))
+
+
+def _rank_main(fn, rank, world, init_method, device, threads, results,
+               args):
+    """One spawned rank: join the world, run fn(world_group, *args) and
+    report ("ok", rank, result) or ("error", rank, traceback)."""
+    # ranks of one host meet on the loopback interface
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    if threads:
+        torch.set_num_threads(threads)
+    try:
+        shard = init_world(rank, world, init_method, device)
+        out = fn(shard, *args)
+        dist.destroy_process_group()
+        results.put(("ok", rank, out))
+    except Exception:
+        results.put(("error", rank, traceback.format_exc()))
+        raise
+
+
+def spawn(fn, world: int, *args, device=None, timeout: float = 600.0,
+          threads: Optional[int] = 1) -> list:
+    """Run fn(shard, *args) on `world` ranks, each a fresh process (the
+    `spawn` start method) in one gloo group on `device` (default cpu;
+    the ranks may share one CUDA card). Returns each rank's result, in
+    rank order. A rank that raises or dies, or a run past `timeout`
+    seconds, ends every rank and raises here. `fn` and `args` are
+    pickled: fn must be a module-level function; `threads` caps each
+    rank's intra-op threads (None leaves torch's default)."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="repro_torch_dist_")
+    init = "file://" + os.path.join(tmp, "rendezvous")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(fn, r, world, init, device, threads, results,
+                               args))
+             for r in range(world)]
+    out = {}
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        while len(out) < world:
+            try:
+                kind, rank, value = results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in out and p.exitcode is not None]
+                if dead:
+                    raise RuntimeError(f"rank {dead[0]} exited with code "
+                                       f"{procs[dead[0]].exitcode} and no "
+                                       f"result")
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{world} ranks of {fn.__name__} "
+                                       f"ran past {timeout} s")
+                continue
+            if kind == "error":
+                raise RuntimeError(f"rank {rank} of {fn.__name__} "
+                                   f"failed:\n{value}")
+            out[rank] = value
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 5.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10.0)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [out[r] for r in range(world)]

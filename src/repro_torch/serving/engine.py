@@ -1,6 +1,7 @@
-"""PowerInfer-2 serving engine — the thin orchestrator, single device.
+"""PowerInfer-2 serving engine — the thin orchestrator.
 
-Counterpart of `repro/serving/engine.py` with no mesh. Three layers:
+Counterpart of `repro/serving/engine.py`, its mesh a group of ranks
+(`repro_torch.parallel`). Three layers:
 
 * **Data plane** — numerically real: one decode step per batch bucket
   (core/adaptation.BucketedDecoder), on a CUDA card one captured CUDA
@@ -30,6 +31,21 @@ clock and decode steps, its CUDA graphs and their memory pool included:
 a captured graph binds to one engine's arena and buffers. The replicas
 share the model's weights and nothing captured. The step with the
 earliest next event on the shared timeline runs next.
+
+Tensor / expert parallel (`shard`, a ShardGroup of n > 1 ranks, each
+process holding its rank's slice of the model): every rank runs the same
+scheduler and storage plane (`n_shards = n`), which stay identical since
+they see the same submits and the same gathered trace; rank 0 of the
+group samples each step's tokens and broadcasts them, so the ranks
+cannot drift apart. Gloo collectives cannot be captured, so such an
+engine steps eagerly (`graph_policy` says why).
+
+dp x tp/ep (`dp=N` with a `shard` of N*tp ranks): every rank holds the
+router and every replica's scheduler and storage plane; replica r's
+steps run on ranks [r*tp, (r+1)*tp) (`parallel.replica_groups`), whose
+first rank then broadcasts the step's tokens and trace to the world, so
+every rank's copy of replica r (a mirror on the other ranks: scheduler,
+plane and clock without a data plane) and every router agree.
 """
 from __future__ import annotations
 
@@ -42,13 +58,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.adaptation import BucketedDecoder, bucket_for
+from repro_torch.core.adaptation import BucketedDecoder, bucket_for, \
+    stepped_plan
 from repro_torch.core.baselines import SystemSpec, POWERINFER2
 from repro_torch.core.io_model import StorageModel, UFS40
 from repro_torch.core.planner import ExecutionPlan, HardwareProfile
 from repro_torch.models import dense
 from repro_torch.models.kv_cache import KVSlotArena
 from repro_torch.models.modules import dtype_of
+from repro_torch.parallel import replica_groups
 from repro_torch.serving.families import serving_family
 from repro_torch.serving.sampler import sample_tokens
 from repro_torch.serving.scheduler import BatchScheduler, ReplicaRouter
@@ -147,7 +165,11 @@ class ServeEngine:
     graph on a CUDA device and runs it eagerly on the CPU; False runs it
     eagerly on either; True on the CPU raises. `dp` > 1 routes requests
     over that many replicas (module docstring); `n_replicas` is the
-    replica count a replica's storage plane divides its cache by."""
+    replica count a replica's storage plane divides its cache by.
+    `shard`: the ShardGroup this rank serves in (module docstring);
+    `model` is then the rank's slice. `publish` is set by a dp x tp
+    engine for each replica: (the world's group, the rank) its steps'
+    tokens and trace are broadcast from."""
 
     def __init__(self, cfg: ModelConfig, model, plan: ExecutionPlan,
                  spec: SystemSpec = POWERINFER2,
@@ -165,7 +187,9 @@ class ServeEngine:
                  backend: str = None,
                  cuda_graphs: Optional[bool] = None,
                  dp: int = None,
-                 n_replicas: int = 1):
+                 n_replicas: int = 1,
+                 shard=None,
+                 publish: tuple = None):
         self.family = serving_family(cfg)
         if backend not in (None, "jnp", "pallas"):
             raise ValueError(f"unknown cold-path backend {backend!r}; "
@@ -193,11 +217,23 @@ class ServeEngine:
         self.spec = spec
         self.model = model
         self.device = model.device
+        self.buckets = tuple(buckets) if buckets else tuple(range(1, 65))
         self.replicas = self.router = None
+        self.shard = shard
+        self._publish = publish
         n_data = 1 if dp is None else int(dp)
         if n_data < 1:
             raise ValueError(f"dp={dp}: at least one replica")
         if n_data > 1:
+            if shard is not None and shard.size > 1:
+                if shard.size % n_data:
+                    raise ValueError(f"dp={n_data} does not divide the "
+                                     f"{shard.size} ranks")
+                tp = shard.size // n_data
+                groups = replica_groups(shard, n_data, tp)
+                sources = [(shard, r * tp) for r in range(n_data)]
+            else:
+                groups, sources = [shard] * n_data, [None] * n_data
             self.replicas = [
                 ServeEngine(cfg, model, plan, spec=spec, storage=storage,
                             offload_ratio=offload_ratio, hw=hw,
@@ -206,44 +242,67 @@ class ServeEngine:
                             buckets=buckets, ctx_budget=ctx_budget,
                             eos_id=eos_id, temperature=temperature,
                             prefetch=prefetch, backend=backend,
-                            cuda_graphs=cuda_graphs, n_replicas=n_data)
-                for _ in range(n_data)]
+                            cuda_graphs=cuda_graphs, n_replicas=n_data,
+                            shard=groups[r], publish=sources[r])
+                for r in range(n_data)]
             self.router = ReplicaRouter([r.sched for r in self.replicas])
             self.sched = self.router
-            self.cuda_graphs = self.replicas[0].cuda_graphs
+            own = [r for r in self.replicas if r.decoder is not None]
+            self.cuda_graphs = own[0].cuda_graphs
+            self.graph_policy = own[0].graph_policy
             self.arena = self.decoder = self.storage = None
             self.ctx_budget = ctx_budget
             self.clock_s = 0.0             # max over replica clocks
             return
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        n_shards = 1 if shard is None else shard.size
+        # a mirror copies a replica served on other ranks: its scheduler,
+        # plane and clock, fed the tokens and trace those ranks publish
+        self.mirror = shard is not None and not shard.member
         on_cuda = self.device.type == "cuda"
+        if cuda_graphs and n_shards > 1:
+            raise ValueError(
+                f"cuda_graphs=True over {n_shards} gloo ranks: a gloo "
+                f"collective cannot be captured in a CUDA graph")
         if cuda_graphs and not on_cuda:
             raise ValueError(f"cuda_graphs=True needs a CUDA device; the "
                              f"model is on {self.device}")
-        self.cuda_graphs = on_cuda if cuda_graphs is None else cuda_graphs
-
-        # ---- data plane ----
-        step_fn = self.family.make_decode_step(cfg)
-        # the decoder reaches the engine's buffers through a weak
-        # reference: no cycle keeps a dropped engine's device memory
-        engine = weakref.ref(self)
-        self.decoder = BucketedDecoder(
-            plan_source=plan,
-            make_step=lambda p: (lambda m, t, c, a: step_fn(m, t, c, p, a)),
-            buckets=tuple(buckets) if buckets else tuple(range(1, 65)),
-            backend=backend, graphs=self.cuda_graphs,
-            inputs=lambda n: engine()._step_inputs(n))
+        if n_shards > 1:
+            self.cuda_graphs = False
+            self.graph_policy = (f"eager: gloo collectives between the "
+                                 f"{n_shards} ranks cannot be captured")
+        else:
+            self.cuda_graphs = on_cuda if cuda_graphs is None \
+                else cuda_graphs
+            self.graph_policy = "one CUDA graph per decode bucket" \
+                if self.cuda_graphs else "eager"
 
         # ---- storage plane ----
         self.storage = StoragePlane(
             cfg, model, plan, spec=spec, storage=storage,
             offload_ratio=offload_ratio, hw=hw, timing=timing,
             n_compute_workers=n_compute_workers, prefetch=prefetch,
-            n_replicas=n_replicas)
-
-        # ---- scheduler + KV slots ----
+            n_shards=n_shards, n_replicas=n_replicas)
         self.sched = BatchScheduler(eos_id=eos_id)
+        self.ctx_budget = ctx_budget
+        self.clock_s = 0.0                 # modeled serving clock
         self.arena: Optional[KVSlotArena] = None
+        if self.mirror:
+            self.decoder = None
+            return
+
+        # ---- data plane ----
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        step_fn = self.family.make_decode_step(cfg, shard=shard)
+        # the decoder reaches the engine's buffers through a weak
+        # reference: no cycle keeps a dropped engine's device memory
+        engine = weakref.ref(self)
+        self.decoder = BucketedDecoder(
+            plan_source=plan,
+            make_step=lambda p: (lambda m, t, c, a: step_fn(m, t, c, p, a)),
+            buckets=self.buckets, backend=backend, graphs=self.cuda_graphs,
+            inputs=lambda n: engine()._step_inputs(n))
+
+        # ---- KV slots ----
         # the step's static inputs (max_slots rows) and the next-token
         # logits (the arena's capacity); a bucket of n slots reads [:n]
         self._tokens = torch.zeros((self.max_slots, 1), dtype=torch.int32,
@@ -253,8 +312,6 @@ class ServeEngine:
         self._last_store = None            # (arena capacity, V)
         self._last = None                  # its view (n_slots, V)
         self._temperature = temperature
-        self.ctx_budget = ctx_budget
-        self.clock_s = 0.0                 # modeled serving clock
 
     def close(self):
         """Release the storage plane's I/O thread (also runs at GC) and
@@ -263,7 +320,8 @@ class ServeEngine:
             for r in self.replicas:
                 r.close()
             return
-        self.decoder.drop_graphs()
+        if self.decoder is not None:
+            self.decoder.drop_graphs()
         self.storage.close()
 
     # ----------------------------------------------- storage plane view ----
@@ -290,7 +348,7 @@ class ServeEngine:
 
     @property
     def max_slots(self) -> int:
-        return self._plane_owner.decoder.buckets[-1]
+        return self.buckets[-1]
 
     # --------------------------------------------------- load reporting ----
     @property
@@ -350,7 +408,7 @@ class ServeEngine:
         if self.arena is None:
             T = max(self.ctx_budget or 0, min_len)
             self.arena = KVSlotArena(cfg.num_layers, n_slots, T,
-                                     cfg.num_kv_heads, cfg.d_head,
+                                     self.model.kv_heads, cfg.d_head,
                                      dtype_of(cfg.param_dtype), self.device,
                                      capacity=reach)
             self._last_store = torch.zeros(
@@ -399,6 +457,8 @@ class ServeEngine:
             for r in self.replicas:
                 r.prewarm()
             return
+        if self.mirror:
+            return
         if self.arena is None:
             raise RuntimeError("no KV arena yet: serve a step first")
         if self.arena.capacity < self.max_slots:
@@ -415,7 +475,8 @@ class ServeEngine:
 
     def _admit(self, reqs: list):
         """Prefill-on-admit: joint prefill per prompt-length group,
-        then write each request's KV row into a free slot."""
+        then write each request's KV row into a free slot (a mirror only
+        advances its clock and admits)."""
         i = 0
         while i < len(reqs):
             group = [reqs[i]]
@@ -423,14 +484,19 @@ class ServeEngine:
             while i < len(reqs) and reqs[i].prompt_len == group[0].prompt_len:
                 group.append(reqs[i])
                 i += 1
+            self.clock_s += self.storage.prefill_cost(group[0].prompt_len,
+                                                      len(group))
+            if self.mirror:
+                for req in group:
+                    self.sched.admit(req, self.clock_s)
+                continue
             tokens = torch.from_numpy(
                 np.stack([r.prompt for r in group]).astype(np.int32)).to(
                     self.device)
             # the model's own layers (dense FFN or MoE) run the prompt
             logits, cache = dense.prefill(self.model, tokens,
-                                          max_len=self.arena.max_len)
-            self.clock_s += self.storage.prefill_cost(group[0].prompt_len,
-                                                      len(group))
+                                          max_len=self.arena.max_len,
+                                          shard=self.shard)
             for j, req in enumerate(group):
                 self.sched.admit(req, self.clock_s)
                 self.arena.alloc(req.uid)
@@ -497,11 +563,51 @@ class ServeEngine:
         n_active = len(sched.running) + len(admits)
         if n_active == 0:
             return None
+        if self.mirror:
+            if admits:
+                self._admit(admits)
+            plan_b = stepped_plan(self.plan, n_active, self.buckets,
+                                  self.backend)
+            toks, trace = self._publish[0].broadcast_object(
+                None, src=self._publish[1])
+        else:
+            plan_b, toks, trace = self._decode(admits, n_active)
+            if self._publish is not None:
+                self._publish[0].broadcast_object((toks, trace),
+                                                  src=self._publish[1])
+
+        ctx = float(np.mean([sched.sequences[u].prompt_len
+                             + sched.sequences[u].n_generated
+                             for u in sched.running]))
+        st = self.storage.step(trace, plan_b, n_active, ctx)
+        self.clock_s += st.effective_s
+
+        tok_map = {u: int(t) for u, t in zip(sched.running, toks)}
+        for u in sched.running:
+            req = sched.sequences[u]
+            if req.first_token_time is None:
+                req.first_token_time = self.clock_s
+        done = sched.step(tok_map)
+        for u in done:
+            sched.sequences[u].finish_time = self.clock_s
+            if not self.mirror:
+                self.arena.release(u)
+        return StepResult(stats=st, tokens=tok_map,
+                          admitted=[r.uid for r in admits], finished=done,
+                          t_s=self.clock_s)
+
+    def _decode(self, admits: list, n_active: int):
+        """The data plane's half of a step: size the arena, admit (prefill)
+        `admits`, sample a token for every running request (rank 0 of a
+        group, broadcast to the rest) and run the bucket's decode step.
+        Returns (the stepped plan, the tokens in running order, the
+        trace as numpy)."""
+        sched = self.sched
         # the KV arena tracks the decoder's bucket table: one resize per
         # boundary crossing. Its length is fixed at creation, so size it
         # for everything already submitted, and its rows for the bucket
         # all of that could fill.
-        buckets = self.decoder.buckets
+        buckets = self.buckets
         b = bucket_for(n_active, buckets)
         need = [r.prompt_len + r.max_new for r in admits]
         if self.arena is None:
@@ -516,12 +622,18 @@ class ServeEngine:
 
         plan_b, step_fn = self.decoder.executable_for(n_active)
         rows = self.arena.rows_for(sched.running)
-        idx = torch.tensor(rows, dtype=torch.long, device=self.device)
-        toks_active = sample_tokens(self._last.index_select(0, idx),
-                                    self._temperature,
-                                    generator=self.generator)
+        if self.shard is None or self.shard.rank == 0:
+            idx = torch.tensor(rows, dtype=torch.long, device=self.device)
+            toks = sample_tokens(self._last.index_select(0, idx),
+                                 self._temperature,
+                                 generator=self.generator).cpu()
+        else:
+            toks = torch.empty((len(rows),), dtype=torch.int32)
+        if self.shard is not None:
+            self.shard.broadcast(toks)
+        toks = toks.numpy()
         feed = np.zeros((n_slots,), np.int32)
-        feed[rows] = toks_active.cpu().numpy()
+        feed[rows] = toks
         mask = np.zeros((n_slots,), bool)
         mask[rows] = True
         tokens, live = self._tokens[:n_slots], self._mask[:n_slots]
@@ -530,27 +642,7 @@ class ServeEngine:
         logits, _, cidx = step_fn(self.model, tokens, self.arena.cache, live)
         # a graph's outputs are overwritten by the next replay: copy out
         self._last.copy_(logits[:, 0])
-        trace = cidx.cpu().numpy()
-
-        ctx = float(np.mean([sched.sequences[u].prompt_len
-                             + sched.sequences[u].n_generated
-                             for u in sched.running]))
-        st = self.storage.step(trace, plan_b, n_active, ctx)
-        self.clock_s += st.effective_s
-
-        tok_map = {u: int(feed[s])
-                   for u, s in zip(sched.running, rows)}
-        for u in sched.running:
-            req = sched.sequences[u]
-            if req.first_token_time is None:
-                req.first_token_time = self.clock_s
-        done = sched.step(tok_map)
-        for u in done:
-            sched.sequences[u].finish_time = self.clock_s
-            self.arena.release(u)
-        return StepResult(stats=st, tokens=tok_map,
-                          admitted=[r.uid for r in admits], finished=done,
-                          t_s=self.clock_s)
+        return plan_b, toks, cidx.cpu().numpy()
 
     def cancel(self, uids):
         """Force-finish requests. Running requests release their KV slot
@@ -569,7 +661,8 @@ class ServeEngine:
         for uid in list(uids):
             if uid in self.sched.running:
                 self.sched.finish(uid, self.clock_s)
-                self.arena.release(uid)
+                if not self.mirror:
+                    self.arena.release(uid)
             elif not self.sched.sequences[uid].finished:
                 self.sched.finish(uid, self.clock_s)   # queued: no slot yet
 

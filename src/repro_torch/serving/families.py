@@ -5,9 +5,9 @@ Every family the engine can serve is one `ServingFamily` entry keyed on
 
 * `make_model(cfg, device, seed)` — the data-plane model (its layers
   carry their FFN, so `dense.prefill` runs every family's model);
-* `make_decode_step(cfg)` — the decode callable with the serving
-  signature `(model, tokens, cache, plan, active_mask) -> (logits,
-  cache, trace)`, trace = the activation trace the storage plane
+* `make_decode_step(cfg, shard=None)` — the decode callable with the
+  serving signature `(model, tokens, cache, plan, active_mask) ->
+  (logits, cache, trace)`, over `shard`'s ranks when given, trace = the activation trace the storage plane
   prices: (L, G, kc) cold-cluster ids for dense and vlm, (L, E)
   kept-dispatch expert counts for moe, or the two-level (L, E, 1+ncc)
   form when cfg.moe_intra_expert prices clusters inside each expert;
@@ -43,7 +43,7 @@ class ServingFamily:
     """One servable model family's factory bundle."""
     family: str
     make_model: Callable           # (cfg, device, seed) -> DenseModel
-    make_decode_step: Callable     # (cfg) -> serving decode callable
+    make_decode_step: Callable     # (cfg, shard=None) -> decode callable
     build_plan: Callable           # (cfg, freqs=None, *, hw, backend,
                                    #  storage_dtype) -> ExecutionPlan
     prepare_params: Callable       # (model, plan) -> model
@@ -98,8 +98,8 @@ def _dense_family(name: str, arch: str) -> ServingFamily:
     return ServingFamily(
         family=name,
         make_model=dense.make_model,
-        make_decode_step=lambda cfg: dense.make_decode_step(
-            cfg, collect_indices=True),
+        make_decode_step=lambda cfg, shard=None: dense.make_decode_step(
+            cfg, collect_indices=True, shard=shard),
         build_plan=_dense_build_plan,
         prepare_params=_dense_prepare,
         default_arch=arch,
@@ -136,8 +136,8 @@ def _moe_family() -> ServingFamily:
     return ServingFamily(
         family="moe",
         make_model=moe.make_model,
-        make_decode_step=lambda cfg: moe.make_decode_step(
-            cfg, collect_indices=True),
+        make_decode_step=lambda cfg, shard=None: moe.make_decode_step(
+            cfg, collect_indices=True, shard=shard),
         build_plan=_moe_build_plan,
         prepare_params=_moe_prepare,
         default_arch="deepseek-moe-16b",

@@ -4,7 +4,8 @@ the card; the decode step's CUDA graphs against the eager step, the moe
 family's included; the moe FFN on the card against the CPU; the offline
 planner's profile and calibration on the card against the CPU, the
 profiled engine graphed and eager, and calibration under captured
-graphs. Marked
+graphs; fused_cold_ffn on each gloo rank's own groups, ranks sharing
+the card. Marked
 `gpu`: without a card each test skips with a reason.
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -918,3 +919,90 @@ def test_calibration_after_capture_keeps_replays_valid(cuda):
     want = fresh.generate(second, max_new=4, temperature=0.0).tokens
     fresh.close()
     np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------------- per rank, over gloo ----
+
+def _rank_cold_path(shard, dtype_name, batches):
+    """On each rank (all on the one card): fused_cold_ffn over the rank's
+    g_loc = G/n groups of smollm-135m's FFN (D 576, d_ff 1536, cs 64, a
+    plan of groups=4) against its plain version, one launch per call; then
+    the sharded hybrid FFN under 'pallas' against the unsharded plain
+    chain in fp32: ids identical, y within 2e-4."""
+    import dataclasses
+    from repro_torch.core.clusters import make_plan
+    from repro_torch.core.sparse_ffn import ffn_hybrid
+    from repro_torch.parallel import cold_range
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    dtype = getattr(torch, dtype_name)
+    D, N, cs, r, R = 576, 1536, 64, 64, 3
+    plan = make_plan(N, 0.25, 0.25, cs, groups=4, backend="pallas")
+    s, n = shard.rank, shard.size
+    g_loc, kc = plan.groups // n, plan.clusters_per_group
+    nc_g = (N - plan.n_hot) // plan.groups // cs
+    lo, hi = cold_range(plan, N, s, n)
+    out = []
+    for B in batches:
+        x, w, A, Bm = (t.to(dev, dtype) for t in _inputs(
+            B, D, r, cs, 1, N // cs, R, torch.float32, "cpu", seed=B)[:4])
+        w = w.reshape(N, R, D)
+        wc = w[lo:hi].reshape(g_loc, nc_g, cs, R, D)
+        _check(x, wc, A, Bm[:, lo:hi], None, "silu", "cats", kc)
+        if dtype == torch.float32:
+            before = ops.fused_cold_ffn.launches
+            ys, ids = ffn_hybrid(w, (A, Bm), x, "silu", "cats", plan,
+                                 return_indices=True, shard=shard)
+            assert ops.fused_cold_ffn.launches == before + 1
+            y1, ids1 = ffn_hybrid(w, (A, Bm), x, "silu", "cats",
+                                  dataclasses.replace(plan, backend="jnp"),
+                                  return_indices=True)
+            assert torch.equal(ids.cpu(), ids1.cpu())
+            torch.testing.assert_close(ys, y1, atol=2e-4, rtol=2e-4)
+        out.append((B, g_loc, shard.calls))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_cold_ffn_per_rank_groups(cuda, n, dtype):
+    from repro_torch.parallel import spawn
+    got = spawn(_rank_cold_path, n, dtype, (1, 4, 32), device="cuda",
+                timeout=300)
+    assert [[b for b, _, _ in r] for r in got] == [[1, 4, 32]] * n
+    assert all(g == 4 // n for r in got for _, g, _ in r)
+
+
+def _rank_build_peak(shard):
+    """build_engine at tp=2 on this rank (smollm-135m at full width, the
+    ranks sharing the card), stopped where the engine would be built:
+    the card's peak allocation until then, the slice's bytes and the
+    whole model's."""
+    from repro_torch.launch import serve
+    from repro_torch.models import dense
+    from repro_torch.configs import get_config
+    torch.cuda.reset_peak_memory_stats()
+    serve.ServeEngine = lambda cfg, model, plan, **kw: model
+    local, cfg = serve.build_engine("smollm-135m", reduced=False, tp=2,
+                                    shard=shard, device="cuda")
+    size = lambda m: sum(t.numel() * t.element_size()
+                         for t in list(m.parameters()) + list(m.buffers()))
+    whole = dense.make_model(get_config("smollm-135m"), device="meta",
+                             seed=None)
+    return torch.cuda.max_memory_allocated(), size(local), size(whole), \
+        local.embed.device.type
+
+
+@pytest.mark.gpu
+def test_build_engine_tp_holds_only_its_slice_on_the_card(cuda):
+    """Under tp each rank builds the whole model on the host and moves
+    only its slice to the card: the card's peak during the build is the
+    slice, below the whole model."""
+    from repro_torch.parallel import spawn
+    for peak, mine, whole, dev in spawn(_rank_build_peak, 2, device="cuda",
+                                        timeout=300):
+        assert dev == "cuda"
+        assert mine < whole
+        assert peak < whole
+        assert peak <= mine + 8 * 2**20

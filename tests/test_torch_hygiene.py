@@ -27,7 +27,7 @@ def test_port_and_smoke_import_no_jax():
                  "repro_torch.configs.paper_models",
                  "repro_torch.configs.qwen3_14b",
                  "repro_torch.configs.qwen2_vl_2b",
-                 "repro_torch.models.moe"}} <= set(names)
+                 "repro_torch.models.moe", "repro_torch.parallel"}} <= set(names)
         for n in names:
             importlib.import_module(n)
         spec = importlib.util.spec_from_file_location(
@@ -42,6 +42,24 @@ def test_port_and_smoke_import_no_jax():
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 25     # every module was imported
+
+
+def _rank_modules(shard):
+    """A spawned rank's own report: its rank and the modules of jax or
+    the JAX package it has loaded, after importing every port module."""
+    import importlib
+    import pkgutil
+    import repro_torch
+    for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        importlib.import_module(m.name)
+    return shard.rank, sorted(m for m in sys.modules
+                              if m.split(".")[0] in ("jax", "jaxlib",
+                                                     "repro"))
+
+
+def test_spawned_rank_imports_no_jax():
+    from repro_torch.parallel import spawn
+    assert spawn(_rank_modules, 2, timeout=120) == [(0, []), (1, [])]
 
 
 def test_every_cuda_source_is_built_and_bound():
