@@ -81,9 +81,9 @@ without printing a result:
             under the kernel and under the plain chain: finite logits,
             28 launches per step, identical ids but for near ties;
    moe    — the moe family at full width, bf16, no kernel on its path:
-            deepseek-moe-16b (whole experts, cut to 4 of 28 layers) at
+            deepseek-moe-16b (whole experts, cut to 2 of 28 layers) at
             fp16 and int8 storage and turbosparse-mixtral-47b (relu
-            mode, cut to 2 of 32 layers) on the PHONE plan and on a
+            mode, cut to 1 of 32 layers) on the PHONE plan and on a
             two-level plan (a 100 ms prefetch window: n_expert_hot 128,
             the (L, E, 1+ncc) trace) serve phase 4's stream graphed and
             eagerly: tokens, traces and TokenStats identical, no
@@ -139,12 +139,32 @@ without printing a result:
             against tp=1, in fp32 as smollm's fp32 and in bf16 as
             smollm's bf16 (its per-rank kernel at D 4096 held with the
             rounding allowance, as phase plan holds relu2);
-            deepseek-moe-16b in fp32 (8 layers) at ep=2 against ep=1:
+            deepseek-moe-16b in fp32 (4 layers) at ep=2 against ep=1:
             tokens, traces and TokenStats, no kernel launch; dp=2 x tp=2
             against dp=2 on one rank: tokens; per rank the wall per
             step, the collectives per step and their time (a spy on the
             group's collectives, the card synchronized around each), the
             FFN rows held, the weights and the serve's peak memory;
+   train  — the training path: one fp32 train step (LM loss, autograd,
+            AdamW) of reduced smollm-135m, deepseek-moe-16b and
+            qwen2-vl-2b on the card against the same step on the CPU
+            from the same weights and batch (TF32 off; loss within 1e-5
+            relative, every gradient leaf within 1e-4 of its max |g|);
+            smollm-135m at full width (30 layers, bf16, remat) trained
+            40 steps by launch.train.train() on the synthetic corpus with
+            the reference bench's recipe (AdamW lr 2e-3, batch 4, seq
+            64): finite losses, the last below 0.8x the first, no kernel
+            launch, wall per step, tokens/s, peak memory, model FLOPs
+            over the bf16 peak; save_checkpoint then load_checkpoint bit
+            for bit; the step's forward / backward / optimizer split
+            (CUDA events); then the reference bench's engine_setup on the
+            loaded model (calibrate_predictor, profile_activations,
+            build_plan on PHONE, whose budgets are printed, then the
+            pinned make_plan(d_ff, 0.125, 0.10, cs) per bucket and the
+            permutation) and phase 4's stream graphed and eagerly
+            (tokens, ids and TokenStats identical, 30 fused_cold_ffn
+            launches per step), then the kernel on layer 0 and x from the
+            serve against its plain version and timed at every bucket;
 7. summary — a JSON line of every kernel, then {"ok": true, ...}.
 
 `--only` runs the card and build phases and then the named ones, and
@@ -191,7 +211,16 @@ from repro_torch.core.sparse_ffn import (  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     GATE_REL, cats_zero_gates, cluster_gather_ffn_ref, dense_ffn_ref,
     fused_cold_ffn_ref, near_threshold, pick_disagreements)
-from repro_torch.launch.serve import build_engine  # noqa: E402
+from repro_torch.launch.serve import (  # noqa: E402
+    build_engine, profile_batches)
+from repro_torch.launch.train import add_modal_inputs  # noqa: E402
+from repro_torch.models.model import build_model, wrap  # noqa: E402
+from repro_torch.optim.adamw import AdamW  # noqa: E402
+from repro_torch.train.steps import (  # noqa: E402
+    loss_and_grads, make_loss_fn, make_train_step)
+from repro_torch.bridge import (  # noqa: E402
+    load_checkpoint, params_from_numpy, params_to_numpy)
+from repro_torch.checkpoint.ckpt import save_checkpoint  # noqa: E402
 from repro_torch.models.modules import activation_fn  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 from repro_torch.quant.storage import quantize_bundles  # noqa: E402
@@ -1781,8 +1810,8 @@ WINDOW = dataclasses.replace(PHONE, name="snapdragon-8gen3, 100 ms window",
                              attn_time_s=0.1)
 # (arch, layers kept, (storage dtype, hardware profile) served): the
 # paper's widths, cut in depth to fit the script's time limit
-MOE = (("deepseek-moe-16b", 4, (("fp16", PHONE), ("int8", PHONE))),
-       ("turbosparse-mixtral-47b", 2, (("fp16", PHONE), ("fp16", WINDOW))))
+MOE = (("deepseek-moe-16b", 2, (("fp16", PHONE), ("int8", PHONE))),
+       ("turbosparse-mixtral-47b", 1, (("fp16", PHONE), ("fp16", WINDOW))))
 MOE_BATCHES = (1, 4, 32)
 MOE_OVERFLOW = 64          # rows of the capacity-overflow case
 MOE_NEAR = 1e-4            # |g| of an fp64 recompute within a flip
@@ -1955,8 +1984,8 @@ def moe_serve_pair(cfg, sd, hw):
 def phase_moe():
     """The moe family at full width, bf16, random weights from seed 0, on
     the planner's plan under the PHONE profile: deepseek-moe-16b (whole
-    experts, 4 of 28 layers) at fp16 and int8 storage, and
-    turbosparse-mixtral-47b (two-level, relu mode, 2 of 32 layers). Each
+    experts, 2 of 28 layers) at fp16 and int8 storage, and
+    turbosparse-mixtral-47b (two-level, relu mode, 1 of 32 layers). Each
     serves phase 4's stream graphed and eagerly (tokens, traces and
     TokenStats identical, no fused_cold_ffn launch), then layer 0's
     apply_moe_ffn runs in fp32 on the card against the CPU; a pallas
@@ -2318,7 +2347,7 @@ TP_DENSE = (("smollm fp32", "smollm-135m", 4, "float32", (1, 2, 4), False),
              True),
             ("bamboo fp32", "bamboo-7b", 4, "float32", (1, 2), False),
             ("bamboo bf16", "bamboo-7b", 4, "bfloat16", (1, 2), True))
-TP_MOE = ("deepseek-moe-16b", 8, "float32")
+TP_MOE = ("deepseek-moe-16b", 4, "float32")
 
 
 # this rank's collectives so far and their seconds (spy_collectives)
@@ -2849,8 +2878,301 @@ def phase_tp(card):
     return out
 
 
+# --------------------------------------------------------- phase train ----
+
+# card against CPU: reduced configs in fp32, one train step from the same
+# seeded weights and batch
+TRAIN_PARITY = ("smollm-135m", "deepseek-moe-16b", "qwen2-vl-2b")
+TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-5, 1e-4
+# full width: benchmarks/common.py::_train_with_cfg's recipe
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = (
+    "smollm-135m", 40, 4, 64, 2e-3)
+TRAIN_BAR = 0.8              # last loss below this share of the first
+TRAIN_BUCKETS = (1, 2, 4, 8, 16, 32)   # engine_setup's pinned plans
+
+
+def train_parity(cfg):
+    """One train step of `cfg` (reduced, fp32) on the card against the
+    same step on the CPU, from the same weights (seed 0, drawn on the CPU)
+    and batch: loss within TRAIN_LOSS_REL relative, every gradient leaf
+    within TRAIN_GRAD_REL of its max |g|; then the step itself (AdamW on
+    each device) gives the same loss and finite parameters."""
+    cpu = build_model(cfg, device="cpu", seed=0)
+    host = params_to_numpy(cpu.module)
+    card = wrap(params_from_numpy(host.tree, cfg, "cuda", dtypes=host.dtypes))
+    rng = np.random.default_rng(0)
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, 32, 2, seed=0))
+    batch = add_modal_inputs(data.batch(), cfg, rng)
+    out = {}
+    for name, m in (("cpu", cpu), ("cuda", card)):
+        b = shard_batch(batch, name)
+        loss, grads = loss_and_grads(m, m.params(), b)
+        opt = AdamW(lr=TRAIN_LR)
+        w = m.params()
+        _, _, met = make_train_step(m, opt)(w, opt.init(w), b)
+        if not (float(met["loss"]) == float(loss) and all(
+                bool(torch.isfinite(p).all()) for p in w.values())):
+            raise AssertionError(f"{cfg.name} on {name}: the step's loss "
+                                 f"moved or a parameter is not finite")
+        out[name] = float(loss), {k: None if g is None else g.cpu()
+                                  for k, g in grads.items()}
+    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out["cuda"]
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    if rel > TRAIN_LOSS_REL:
+        raise AssertionError(f"{cfg.name}: card loss {l_card} vs CPU "
+                             f"{l_cpu}, {rel:.3e} relative")
+    worst = 0.0
+    for k, g in g_cpu.items():
+        if g is None or g_card[k] is None:
+            if (g is None) != (g_card[k] is None):
+                raise AssertionError(f"{cfg.name}: {k} has a gradient on "
+                                     f"one device only")
+            continue
+        e = float((g_card[k] - g).abs().max()) / max(
+            float(g.abs().max()), 1e-30)
+        worst = max(worst, e)
+        if e > TRAIN_GRAD_REL:
+            raise AssertionError(f"{cfg.name}: gradient of {k} off by "
+                                 f"{e:.3e} of its max")
+    print(f"  {cfg.name} (reduced, fp32): loss card {l_card:.7f}, CPU "
+          f"{l_cpu:.7f} ({rel:.2e} relative); {len(g_cpu)} gradient leaves, "
+          f"worst {worst:.2e} of its max |g|")
+    return dict(loss_card=l_card, loss_cpu=l_cpu, loss_rel=rel,
+                grad_worst_rel=worst)
+
+
+def train_full(cfg):
+    """repro_torch.launch.train.train() at full width on the card, each
+    step's synchronized wall recorded by a spy on make_train_step (the
+    batch's host preparation left out); the peak device memory above what
+    was allocated when it started; the kernel launches of the steps."""
+    import repro_torch.launch.train as ltrain
+    inner, walls = ltrain.make_train_step, []
+
+    def timed_step(model, opt):
+        step = inner(model, opt)
+
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*a)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            return out
+        return run
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.set_launch_counts({k: 0 for k in ops.launch_counts()})
+    ltrain.make_train_step = timed_step
+    try:
+        model, losses = ltrain.train(
+            TRAIN_ARCH, steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
+            seq_len=TRAIN_SEQ, reduced=False, lr=TRAIN_LR, log_every=10,
+            seed=0, device="cuda")
+    finally:
+        ltrain.make_train_step = inner
+    launched = ops.launch_counts()
+    if any(launched.values()):
+        raise AssertionError(f"the train steps launched {launched}: the "
+                             f"reference trains through no Pallas kernel")
+    return (model, losses, walls, torch.cuda.max_memory_allocated() - base,
+            launched)
+
+
+def step_split(model, batch, n=3):
+    """The train step's device time split into forward (the loss),
+    backward (autograd) and optimizer (AdamW's update and the write into
+    the parameters), CUDA events around each, medians of n steps from a
+    fresh AdamW state."""
+    opt = AdamW(lr=TRAIN_LR)
+    params = model.params()
+    state = opt.init(params)
+    loss_fn = make_loss_fn(model)
+    rows = []
+    for _ in range(n):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        for p in params.values():
+            p.requires_grad_(True)
+        ev[0].record()
+        loss = loss_fn(batch)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        ev[2].record()
+        for p in params.values():
+            p.requires_grad_(False)
+        new, state = opt.update(dict(zip(params, grads)), state, params)
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(new[k])
+        ev[3].record()
+        torch.cuda.synchronize()
+        rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        del loss, grads, new
+    med = np.median(np.array(rows), axis=0)
+    return dict(forward_ms=float(med[0]), backward_ms=float(med[1]),
+                optimizer_ms=float(med[2]))
+
+
+def same_params(a, b) -> bool:
+    """Every parameter of two models bit-identical."""
+    pb = dict(b.named_parameters())
+    for name, p in a.named_parameters():
+        q = pb[name]
+        if p.dtype != q.dtype or not torch.equal(
+                p.view(torch.int16) if p.dtype == torch.bfloat16 else p,
+                q.view(torch.int16) if q.dtype == torch.bfloat16 else q):
+            return False
+    return True
+
+
+def trained_plan(cfg, model):
+    """benchmarks/common.py::engine_setup on the trained model:
+    calibrate_predictor and profile_activations on four (4, 64) batches,
+    build_plan on PHONE (printed: the trained model's own budgets), then
+    the budgets pinned to make_plan(d_ff, 0.125, 0.10, cs) scaled per
+    bucket, and the hot-first permutation."""
+    batches = profile_batches(cfg, "cuda", 0)
+    calibrate_predictor(model, cfg, batches)
+    q = predictor_quality(model, cfg, batches)
+    counts, n_tok = profile_activations(model, cfg, batches)
+    freqs = (counts / n_tok).astype(np.float32)
+    plan = build_plan(cfg, freqs, hw=PHONE, backend="pallas")
+    unpinned = {b: dict(n_hot=p.n_hot, kc=p.clusters_per_group,
+                        k_cold=p.k_cold) for b, p in sorted(plan.plans.items())}
+    cs = cfg.sparse_ffn.cluster_size
+    print(f"  trained plan on PHONE ({n_tok} profiled tokens, mean "
+          f"activation frequency {freqs.mean():.4f}, predictor recall "
+          f"{q:.4f}), n_hot / kc of {cfg.d_ff // cs} clusters of {cs} per "
+          f"bucket: " + ", ".join(f"B={b} {v['n_hot']}/{v['kc']}"
+                                  for b, v in unpinned.items()))
+    base = make_plan(cfg.d_ff, 0.125, 0.10, cs, backend="pallas")
+    plan.plans = {b: scale_plan_for_batch(base, cfg.d_ff, b, cs)
+                  for b in TRAIN_BUCKETS}
+    print("  pinned (engine_setup): " + ", ".join(
+        f"B={b} {p.n_hot}/{p.clusters_per_group}"
+        for b, p in sorted(plan.plans.items())))
+    model = serving_family(cfg).prepare_params(model, plan)
+    return model, plan, dict(unpinned=unpinned, mean_frequency=float(
+        freqs.mean()), recall=q, n_tokens=n_tok)
+
+
+def phase_train(card):
+    """The training path on the card: (1) one fp32 train step of reduced
+    smollm-135m, deepseek-moe-16b and qwen2-vl-2b against the CPU; (2)
+    smollm-135m at full width (30 layers, bf16, remat) trains 40 steps
+    through launch.train.train() on the synthetic corpus with the
+    reference bench's recipe: finite losses, the last below 0.8x the
+    first; (3) save_checkpoint then load_checkpoint gives every parameter
+    back bit for bit; the step's forward / backward / optimizer split;
+    (4) the loaded model is calibrated, profiled, planned (the unpinned
+    budgets printed, then engine_setup's pinned ones), permuted and
+    served graphed and eagerly through fused_cold_ffn (tokens, ids and
+    TokenStats identical, 30 launches per cold step), and the kernel on
+    layer 0 and x from the serve is held against its plain version and
+    timed at every bucket."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: fp32 products would not be fp32")
+    out = {"parity": {}}
+    print("== phase train: one fp32 step, card against CPU")
+    for arch in TRAIN_PARITY:
+        out["parity"][arch] = train_parity(get_config(arch).reduced())
+    cfg = get_config(TRAIN_ARCH)
+    print(f"== phase train: {TRAIN_ARCH} at full width (D {cfg.d_model}, "
+          f"{cfg.num_layers} layers, {cfg.param_dtype}, remat "
+          f"{cfg.remat}), {TRAIN_STEPS} steps of ({TRAIN_BATCH}, "
+          f"{TRAIN_SEQ}) tokens, lr {TRAIN_LR} ({card})")
+    model, losses, walls, peak, launched = train_full(cfg)
+    if not (np.isfinite(losses).all()
+            and losses[-1] < TRAIN_BAR * losses[0]):
+        raise AssertionError(f"{TRAIN_ARCH}: losses {losses[0]} -> "
+                             f"{losses[-1]}, not below {TRAIN_BAR}x")
+    if any(p.requires_grad for p in model.module.parameters()):
+        raise AssertionError("the trained model's parameters require grad")
+    n_params = sum(p.numel() for p in model.module.parameters())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    wall = float(np.median(walls[5:]))
+    flops = 6.0 * n_params * tokens
+    mfu = flops / wall / PEAK_OPS_PER_S[torch.bfloat16]
+    curve = {i: losses[i] for i in (0, 10, 20, TRAIN_STEPS - 1)}
+    print(f"  loss " + ", ".join(f"step {i} {v:.4f}" for i, v in
+                                 curve.items())
+          + f"; wall per step median of steps 5-{TRAIN_STEPS} "
+          f"{wall * 1e3:.2f} ms (first {walls[0] * 1e3:.2f}), "
+          f"{tokens / wall:.1f} tokens/s; {n_params} parameters, model "
+          f"FLOPs 6*N*tokens {flops / 1e12:.3f} TFLOP per step = "
+          f"{mfu * 100:.3f}% of the dense bf16 peak; peak device memory "
+          f"{peak / 2**20:.1f} MiB above the start's; kernel launches in the "
+          f"steps {launched}")
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        save_checkpoint(d, params_to_numpy(model.module), step=TRAIN_STEPS)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served = load_checkpoint(d, cfg, "cuda")
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    if not same_params(model.module, served):
+        raise AssertionError("the checkpoint did not round-trip bit for bit")
+    print(f"  checkpoint: save {t_save:.2f} s, load {t_load:.2f} s, every "
+          f"parameter bit-identical")
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                      seed=1))
+    split = step_split(model, shard_batch(data.batch(), "cuda"))
+    print(f"  one step's device time: forward {split['forward_ms']:.2f} ms, "
+          f"backward {split['backward_ms']:.2f} ms, optimizer "
+          f"{split['optimizer_ms']:.2f} ms (CUDA events, median of 3)")
+    del model
+    free_cuda()
+    served, plan, planned = trained_plan(cfg, served)
+    spy, xs = x_spy(served)
+    runs = {"graph": arch_serve(cfg, served, plan, True),
+            "eager": arch_serve(cfg, served, plan, False, spy)}
+    g, e = runs["graph"], runs["eager"]
+    for name, a, b in zip(("tokens", "traces", "TokenStats"), g["outputs"],
+                          e["outputs"]):
+        if a != b:
+            raise AssertionError(f"trained {TRAIN_ARCH}: graphed and eager "
+                                 f"{name} differ")
+    for name, r in runs.items():
+        dev = r["profile"].get("device_ms_per_step")
+        print(f"  served {name}: wall per step median "
+              f"{r['wall_ms_median']:.2f} ms (first {r['wall_ms_first']:.2f}"
+              f"); device busy per step "
+              + ("not measured" if dev is None else f"{dev:.3f} ms")
+              + f"; storage plane {r['plane_ms']:.2f} ms per step (host); "
+              f"launches {r['launches']} = {cfg.num_layers} x "
+              f"{r['cold_steps']} of {r['steps']} steps")
+    rows = torch.cat(xs)
+    if rows.shape[0] < max(TRAIN_BUCKETS):
+        raise AssertionError(f"{rows.shape[0]} rows of x from the serve")
+    print(f"  fused_cold_ffn on layer 0 of the trained, pinned plan, x from "
+          f"the serve:")
+    kt = arch_kernel(cfg, served, plan, rows, TRAIN_BUCKETS)
+    out.update(
+        arch=TRAIN_ARCH, layers=cfg.num_layers, steps=TRAIN_STEPS,
+        losses=losses, loss_curve=curve, wall_ms_median=wall * 1e3,
+        wall_ms=[w * 1e3 for w in walls], tokens_per_s=tokens / wall,
+        n_params=n_params, model_flops_share=mfu, peak_bytes=peak,
+        split_ms=split, checkpoint_s=dict(save=t_save, load=t_load),
+        plan=planned, launches=g["launches"], kernels=kt,
+        launches_train_step=launched,
+        serve={m: dict(wall_ms_median=r["wall_ms_median"],
+                       plane_ms=r["plane_ms"], steps=r["steps"],
+                       launches=r["launches"], cold_steps=r["cold_steps"],
+                       device_ms_per_step=r["profile"].get(
+                           "device_ms_per_step"))
+               for m, r in runs.items()})
+    del served, rows, xs, spy
+    free_cuda()
+    return out
+
+
 PHASES = ("kernel", "quant", "times", "gather", "serve", "parity", "api",
-          "fleet", "archs", "vlm", "moe", "plan", "tp")
+          "fleet", "archs", "vlm", "moe", "plan", "tp",
+          "train")
 
 
 def main(argv=None):
@@ -2913,6 +3235,7 @@ def main(argv=None):
     moe_out = timed("moe", phase_moe)
     plan_out = timed("plan", phase_plan, card)
     tp_out = timed("tp", phase_tp, card)
+    train_out = timed("train", phase_train, card)
     if run != set(PHASES):
         print(f"chip_smoke: ran phases {sorted(run)} only; no summary")
         return 0
@@ -2931,6 +3254,8 @@ def main(argv=None):
                                          for t in v["kernels"].values()]
                            + [t["max_abs_err"] for v in plan_out.values()
                               for t in v["kernels"].values()]
+                           + [t["max_abs_err"]
+                              for t in train_out["kernels"].values()]
                            + [r["max_abs_err"] for v in plan_out.values()
                               for r in v["rows"]]),
         "ms": t1["ms"], "plain_ms": t1["plain_ms"],
@@ -2964,13 +3289,18 @@ def main(argv=None):
             **{f"{k} stream, tp={n}, per rank (phase tp)": r["launches"]
                for k, v in tp_out.items() if k.startswith(("smollm",
                                                            "bamboo"))
-               for n, r in v.items()}},
+               for n, r in v.items()},
+            "train steps (phase train)":
+                train_out["launches_train_step"]["fused_cold_ffn"],
+            **{f"trained {train_out['arch']} stream, {m} (phase train)":
+               r["launches"] for m, r in train_out["serve"].items()}},
         "by_model": {a: {"layers": v["layers"],
                          "launches_per_step": v["launches"] // v["steps"],
                          "by_batch": {str(b): t
                                       for b, t in v["kernels"].items()}}
                      for a, v in archs.items()},
-        "fleet": fleet, "moe": moe_out, "plan": plan_out, "tp": tp_out}, {
+        "fleet": fleet, "moe": moe_out, "plan": plan_out, "tp": tp_out,
+        "train": train_out}, {
         "name": "fused_cold_ffn (quant mode)", "route": "cuda",
         "source": src + "fused_cold_ffn.cu",
         "replaces": "src/repro/kernels/cluster_gather_ffn.py:148",
@@ -3003,6 +3333,7 @@ def main(argv=None):
             "checked": True, "launches": api[name],
             "launches_on": "the kernel API at full width (phase 6); the "
                            "serving path launches it 0 times",
+            "launches_train_step": train_out["launches_train_step"][name],
             "max_abs_err": g_err, "ms": g1["ms"],
             "plain_ms": g1["plain_ms"], "bound_ms": g1["bound_ms"],
             "bound_by": g1["bound_by"], "library_ms": None,

@@ -21,13 +21,17 @@ Over a group of ranks, `shard_params` cuts the tree to one rank's slices
 `_QUANT_FFN_SPECS`), and `params_from_numpy(..., shard=, plan=)` builds
 that rank's model from them; `shard_model` does the same from a whole
 port model.
+
+`params_to_numpy(model)` is the inverse of `params_from_numpy`: the
+reference-layout tree of a whole model, layer leaves stacked (L, ...),
+which `checkpoint.ckpt.save_checkpoint` writes as the reference does.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.ckpt import SEP, restore_numpy
+from repro_torch.checkpoint.ckpt import SEP, Tree, restore_numpy
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.dense import DenseModel
 from repro_torch.models.moe import MoEModel
@@ -233,6 +237,43 @@ def model_tree(model: DenseModel) -> dict:
                        "B": [l.ffn.pred_B for l in layers]}
     out["layers"]["ffn"] = ffn
     return out
+
+
+def _numpy(t: torch.Tensor):
+    """(numpy array, dtype name) of a tensor; bf16 as its uint16 bits."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    a = t.numpy()
+    return a, a.dtype.name
+
+
+def params_to_numpy(model: DenseModel, values: dict = None) -> Tree:
+    """The reference-layout tree of a whole port model as numpy (the
+    inverse of `params_from_numpy`): `model_tree`'s per-layer lists
+    stacked into (L, ...) leaves, each on the host, bf16 leaves as their
+    uint16 bits with "bfloat16" in the returned dtypes. With `values`
+    (tensors keyed by the model's parameter names, such as gradients or
+    AdamW moments) the same tree of those tensors instead, a None value
+    giving zeros."""
+    names = {id(p): n for n, p in model.named_parameters()}
+
+    def pick(t):
+        if values is None:
+            return t
+        v = values[names[id(t)]]
+        return torch.zeros_like(t) if v is None else v
+
+    def convert(node):
+        if isinstance(node, dict):
+            out = {k: convert(v) for k, v in node.items()}
+            return ({k: a for k, (a, _) in out.items()},
+                    {k: d for k, (_, d) in out.items()})
+        if isinstance(node, list):
+            return _numpy(torch.stack([pick(t).detach() for t in node]))
+        return _numpy(pick(node))
+
+    return Tree(*convert(model_tree(model)))
 
 
 def shard_model(model: DenseModel, plan, shard, device=None) -> DenseModel:

@@ -1,1 +1,1 @@
-"""Reading the reference's checkpoints (numpy and json only)."""
+"""The reference's checkpoint layout: reader and writer (numpy and json only)."""

@@ -3,7 +3,9 @@ the FFN block (dense or PowerInfer-2 hybrid).
 
 Counterpart of `repro/models/blocks.py`. Parameters keep the reference's
 layouts (wq (d, H*dh), ffn w (N, R, D), predictor A (D, r) / B (r, N)) so
-its weights load unchanged; they are frozen (`requires_grad=False`).
+its weights load unchanged. They are built frozen (`requires_grad=False`),
+as serving wants them; the train step (`train/steps.py`) makes them
+require grad only while it differentiates the loss.
 
 Over a group of ranks (`repro_torch.parallel`) a module is built at its
 rank's slice (`ShardLayout`): attention holds its heads (`wq`/`wk`/`wv`

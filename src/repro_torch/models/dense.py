@@ -2,8 +2,10 @@
 serving path.
 
 Counterpart of `repro/models/dense.py`. The model is an `nn.Module`
-holding the parameters; prefill and decode are plain functions over it,
-and the reference's layer `scan` is a Python loop.
+holding the parameters; forward (the training forward), prefill and
+decode are plain functions over it, and the reference's layer `scan` is
+a Python loop. Prefill and decode run under `torch.no_grad()` (a decode
+step is captured in a CUDA graph); forward records autograd when asked.
 
 Tensor parallel: a model built with a `ShardLayout` holds one rank's
 slice (`bridge.params_from_numpy(..., shard=...)`), and prefill and
@@ -17,6 +19,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.clusters import HybridPlan
@@ -149,21 +152,46 @@ def lm_logits(model: DenseModel, x):
     return logits
 
 
+def _layer_full(layer, x, cfg: ModelConfig, angles, plan, shard):
+    """One layer over the full sequence: (x', (k, v))."""
+    a, kv = blocks.attn_full(layer.attn, rms_norm(x, layer.ln1, cfg.norm_eps),
+                             cfg, angles, causal=True, shard=shard)
+    x = x + a
+    x = x + layer.ffn_block(rms_norm(x, layer.ln2, cfg.norm_eps), cfg, plan,
+                            shard=shard)
+    return x, kv
+
+
 def forward_from_embeds(model: DenseModel, x, angles, *, plan=None,
                         collect_kv=False, shard=None):
-    """Run the layer stack over full-sequence embeddings."""
+    """Run the layer stack over full-sequence embeddings. While autograd
+    records (grad enabled), `cfg.remat` recomputes each layer in the
+    backward pass instead of keeping its activations (the reference's
+    `jax.checkpoint` of the scanned layer)."""
     cfg = model.cfg
+    remat = cfg.remat and torch.is_grad_enabled()
     kvs = []
     for layer in model.layers:
-        a, kv = blocks.attn_full(layer.attn,
-                                 rms_norm(x, layer.ln1, cfg.norm_eps), cfg,
-                                 angles, causal=True, shard=shard)
-        x = x + a
-        x = x + layer.ffn_block(rms_norm(x, layer.ln2, cfg.norm_eps), cfg,
-                                plan, shard=shard)
+        if remat:
+            x, kv = checkpoint(_layer_full, layer, x, cfg, angles, plan,
+                               shard, use_reentrant=False)
+        else:
+            x, kv = _layer_full(layer, x, cfg, angles, plan, shard)
         if collect_kv:
             kvs.append(kv)
     return x, kvs
+
+
+def forward(model: DenseModel, tokens, plan: Optional[HybridPlan] = None):
+    """Full-sequence logits (B, S, V) of tokens (B, S) under 1-D RoPE;
+    differentiable (the training forward) when grad is enabled and the
+    parameters require it."""
+    cfg = model.cfg
+    x = embed_tokens(model, tokens)
+    pos = torch.arange(x.shape[1], device=x.device)
+    angles = rope_angles(pos, cfg.d_head // 2, cfg.rope_theta)
+    x, _ = forward_from_embeds(model, x, angles, plan=plan)
+    return lm_logits(model, x)
 
 
 # -------------------------------------------------------- prefill/decode ----

@@ -46,7 +46,6 @@ from repro_torch.core.clusters import HybridPlan
 from repro_torch.core.planner import _act_threshold
 from repro_torch.core.sparse_ffn import ffn_dense, ffn_rows
 from repro_torch.models import blocks, dense
-from repro_torch.models.attention import rope_angles
 from repro_torch.models.modules import activation_fn, dense_init
 from repro_torch.parallel import expert_parallel
 
@@ -348,21 +347,12 @@ def make_model(cfg: ModelConfig, device=None, seed: Optional[int] = 0):
     return dense.make_model(cfg, device, seed, model_type=MoEModel)
 
 
-@torch.no_grad()
-def forward(model: MoEModel, tokens):
-    """Full-sequence logits (B, S, V) of tokens (B, S), every layer's
-    MoE over the B*S tokens in the config's dispatch groups."""
-    cfg = model.cfg
-    x = dense.embed_tokens(model, tokens)
-    pos = torch.arange(x.shape[1], device=x.device)
-    angles = rope_angles(pos, cfg.d_head // 2, cfg.rope_theta)
-    x, _ = dense.forward_from_embeds(model, x, angles)
-    return dense.lm_logits(model, x)
-
-
-# prefill and decode are the dense model's layer walk, which reaches each
-# layer's MoE through MoELayer.ffn_block; the decode trace is (L, E) or
-# (L, E, 1+ncc)
+# forward (full-sequence logits, every layer's MoE over the B*S tokens in
+# the config's dispatch groups; differentiable, the training forward, whose
+# router aux loss is dropped as the reference's is), prefill and decode are
+# the dense model's layer walk, which reaches each layer's MoE through
+# MoELayer.ffn_block; the decode trace is (L, E) or (L, E, 1+ncc)
+forward = dense.forward
 prefill = dense.prefill
 make_decode_step = dense.make_decode_step
 

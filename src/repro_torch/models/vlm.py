@@ -77,10 +77,11 @@ def decode_angles(cfg: ModelConfig, pos):
                         cfg.mrope_sections, cfg.rope_theta)
 
 
-@torch.no_grad()
 def forward(model: dense.DenseModel, tokens, patch_embeds,
             plan: Optional[HybridPlan] = None, shard=None):
-    """Logits (B, P + S_text, V) of the whole [image ; text] sequence."""
+    """Logits (B, P + S_text, V) of the whole [image ; text] sequence;
+    differentiable (the training forward) when grad is enabled and the
+    parameters require it."""
     x = _embed(model, tokens, patch_embeds)
     B, S = x.shape[:2]
     x, _ = dense.forward_from_embeds(

@@ -27,7 +27,10 @@ def test_port_and_smoke_import_no_jax():
                  "repro_torch.configs.paper_models",
                  "repro_torch.configs.qwen3_14b",
                  "repro_torch.configs.qwen2_vl_2b",
-                 "repro_torch.models.moe", "repro_torch.parallel"}} <= set(names)
+                 "repro_torch.models.moe", "repro_torch.parallel",
+                 "repro_torch.optim.adamw", "repro_torch.train.steps",
+                 "repro_torch.launch.train",
+                 "repro_torch.models.model"}} <= set(names)
         for n in names:
             importlib.import_module(n)
         spec = importlib.util.spec_from_file_location(
@@ -89,6 +92,18 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         build_engine()
     with pytest.raises(RuntimeError, match="cuda"):
         make_model(get_config("smollm-135m").reduced())
+
+
+def test_train_refuses_a_missing_card(monkeypatch):
+    """Training runs on the card unless the caller asks for the CPU."""
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import build_model
+    from repro_torch.configs import get_config
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train("smollm-135m", steps=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(get_config("smollm-135m").reduced())
 
 
 def test_zombie_lane_writes_wrap_the_ring():
