@@ -165,6 +165,25 @@ without printing a result:
             (tokens, ids and TokenStats identical, 30 fused_cold_ffn
             launches per step), then the kernel on layer 0 and x from the
             serve against its plain version and timed at every bucket;
+   families — the ssm, hybrid and encdec families through build_model's
+            uniform API (forward, prefill, decode_step) at full width,
+            bf16, seeded random weights: mamba2-130m (24 layers),
+            recurrentgemma-9b (38 layers) and seamless-m4t-large-v2 (24
+            encoder and 24 decoder layers over 4,096 frames), one prefill
+            (2,048 tokens, which fill recurrentgemma's local ring; 256
+            for seamless) then 16 greedy decode steps at B 1 and 4 under
+            make_plan(d_ff, 0.4, 0.2, 128, backend "pallas"): finite
+            logits, fused_cold_ffn launched once per FFN layer and step
+            (38, 24, 0) and never in the prefill, the ring wrapped;
+            prefill time, wall per step, peak memory, device busy per
+            step (torch.profiler over 3 more steps); the kernel on layer
+            0's weights (geglu R=3 D 4096; gelu R=2 D 1024) and x from the
+            decode at B 1/4/32 against its plain version with the
+            rounding allowance (which covers CATS gates at zero), timed in
+            a CUDA graph beside its bound; prefill + decode equal forward
+            in fp32 at full width cut in depth (recurrentgemma across its
+            ring's wrap); one fp32 train step of each reduced config,
+            card against CPU;
 7. summary — a JSON line of every kernel, then {"ok": true, ...}.
 
 `--only` runs the card and build phases and then the named ones, and
@@ -1561,27 +1580,27 @@ def cold_path(cfg, plan, engine, batch) -> bool:
     return p.n_hot < cfg.d_ff and p.clusters_per_group > 0
 
 
-def layer_operands(model, p, l=0):
-    """fused_cold_ffn's operands at layer l under bucket plan p: the cold
-    clusters (G, nc_g, cs, R, D) and the predictor's A and cold slice."""
-    ffn = model.layers[l].ffn
+def layer_operands(ffn, p):
+    """fused_cold_ffn's operands of the FFN module `ffn` under bucket plan
+    p: the cold clusters (G, nc_g, cs, R, D) and the predictor's A and
+    cold slice."""
     N, R, D = ffn.w.shape
     wc = ffn.w[p.n_hot:].reshape(p.groups, -1, p.cluster_size, R, D)
     return wc, ffn.pred_A, ffn.pred_B[:, p.n_hot:]
 
 
-def arch_kernel(cfg, model, plan, xs, batches=ARCH_BATCHES,
+def arch_kernel(cfg, ffn, plan_for, xs, batches=ARCH_BATCHES,
                 rounding=False):
-    """fused_cold_ffn on layer 0's weights and rows of x recorded from
-    the serve, at each B of `batches` under the plan's bucket for B,
-    against its plain version (phase 3's check; `rounding` as
-    hold_kernel's), then its time per call in a CUDA graph beside its
-    bound."""
+    """fused_cold_ffn on the weights of the FFN module `ffn` (layer 0's)
+    and rows of x recorded from the serve, at each B of `batches` under
+    the bucket plan `plan_for(B)`, against its plain version (phase 3's
+    check; `rounding` as hold_kernel's), then its time per call in a
+    CUDA graph beside its bound."""
     out = {}
     mode = cfg.sparse_ffn.mode
     for B in batches:
-        p = plan.plan_for_batch(B)
-        wc, A, Bp = layer_operands(model, p)
+        p = plan_for(B)
+        wc, A, Bp = layer_operands(ffn, p)
         kc = p.clusters_per_group
         x = xs[:B].contiguous()
         mask = torch.ones(B, dtype=torch.bool, device="cuda")
@@ -1654,7 +1673,7 @@ def phase_archs():
         rows = torch.cat(xs)
         if rows.shape[0] < max(ARCH_BATCHES):
             raise AssertionError(f"{arch}: {rows.shape[0]} rows of x")
-        kt = arch_kernel(cfg, model, plan, rows)
+        kt = arch_kernel(cfg, model.layers[0].ffn, plan.plan_for_batch, rows)
         out[arch] = dict(
             layers=cfg.num_layers, launches=g["launches"], steps=g["steps"],
             kernels=kt, **{f"{k}_{m}": runs[m][k] for m in runs
@@ -1754,7 +1773,7 @@ def phase_vlm():
     launches, ids_p, ids_j, xs_p, _, p1, model = vlm_run(cfg, patches, tokens)
     near_same_x = []
     for s, l in pairs:
-        wc, A, Bp = layer_operands(model, p1, l)
+        wc, A, Bp = layer_operands(model.layers[l].ffn, p1)
         _, ir = fused_cold_ffn_ref(xs_p[s][l], wc, A, Bp, mask,
                                    activation=cfg.activation,
                                    cats=cfg.sparse_ffn.mode == "cats",
@@ -1782,7 +1801,7 @@ def phase_vlm():
         a, b = ids_p[s][l], ids_j[s][l]
         if torch.equal(a, b):
             continue
-        wc, A, Bp = layer_operands(model, p1, l)
+        wc, A, Bp = layer_operands(model.layers[l].ffn, p1)
         verdicts = [pick_disagreements(a, b, x[s][l], wc, A, Bp, mask)
                     for x in (xs_p, xs_j)]
         if all(real for _, real in verdicts):
@@ -2076,7 +2095,7 @@ def kernel_rows(cfg, model, X0, source):
         cold = dataclasses.replace(scale_plan_for_batch(base, N, B, cs),
                                    n_hot=0, backend="pallas")
         x = X0[:B].contiguous()
-        wc, A, Bp = layer_operands(model, cold)
+        wc, A, Bp = layer_operands(model.layers[0].ffn, cold)
         kc = cold.clusters_per_group
         err = hold_kernel(
             f"{cfg.name} {leg} B={B} (nc_g {wc.shape[1]}, kc {kc})", x, wc,
@@ -2310,7 +2329,8 @@ def phase_plan(card):
             raise AssertionError(f"{arch}: {xs.shape[0]} rows of x")
         print(f"  fused_cold_ffn on layer 0 of the calibrated plan, x from "
               f"the serve, at the buckets with a cold path:")
-        kt = arch_kernel(cfg, model, plan, xs, cold_buckets, rounding=True)
+        kt = arch_kernel(cfg, model.layers[0].ffn, plan.plan_for_batch, xs,
+                         cold_buckets, rounding=True)
         out[arch] = dict(
             layers=cfg.num_layers, n_tokens=n_tok, profile_s=t_profile,
             calibrate_s=t_cal, calibrate_s_per_layer=t_cal / cfg.num_layers,
@@ -2468,7 +2488,7 @@ def tp_same_x(cfg, model, run):
     for i, (l, x, mask) in enumerate(run["xs"]):
         s = i // L
         trace, p = run["calls"][s][:2]
-        wc, A, Bp = layer_operands(model, p, l)
+        wc, A, Bp = layer_operands(model.layers[l].ffn, p)
         ids = torch.from_numpy(trace[l]).to(x.device)
         _, ir = fused_cold_ffn_ref(x, wc, A, Bp, mask.float(),
                                    activation=cfg.activation,
@@ -3150,7 +3170,8 @@ def phase_train(card):
         raise AssertionError(f"{rows.shape[0]} rows of x from the serve")
     print(f"  fused_cold_ffn on layer 0 of the trained, pinned plan, x from "
           f"the serve:")
-    kt = arch_kernel(cfg, served, plan, rows, TRAIN_BUCKETS)
+    kt = arch_kernel(cfg, served.layers[0].ffn, plan.plan_for_batch, rows,
+                     TRAIN_BUCKETS)
     out.update(
         arch=TRAIN_ARCH, layers=cfg.num_layers, steps=TRAIN_STEPS,
         losses=losses, loss_curve=curve, wall_ms_median=wall * 1e3,
@@ -3170,9 +3191,311 @@ def phase_train(card):
     return out
 
 
+# ------------------------------------------------------ phase families ----
+
+# (arch, prompt length): the ssm, hybrid and encdec families whole, at
+# full width in bf16; recurrentgemma-9b's prompt fills its 2,048-slot
+# local ring, so that the decode wraps it
+FAMILIES = (("mamba2-130m", 2048), ("recurrentgemma-9b", 2048),
+            ("seamless-m4t-large-v2", 256))
+FAMILY_BATCHES = (1, 4)
+FAMILY_STEPS = 16
+# decode against forward in fp32 at full width, cut in depth: (arch,
+# layers kept, prompt, batch); recurrentgemma-9b keeps one group and the
+# two remainder layers, and its 2,048-token prompt makes the decode wrap
+# the local ring
+FAMILY_CONSISTENCY = (("mamba2-130m", 4, 64, 2),
+                      ("recurrentgemma-9b", 5, 2048, 1),
+                      ("seamless-m4t-large-v2", 2, 32, 2))
+CONSISTENCY_TOL = dict(atol=5e-3, rtol=1e-3)   # test_decode_consistency's
+
+
+def family_cfg(arch, layers=None):
+    """The config, cut to `layers` decoder (and encoder) layers."""
+    cfg = get_config(arch)
+    if layers is None:
+        return cfg
+    kw = {"num_layers": layers}
+    if cfg.num_encoder_layers:
+        kw["num_encoder_layers"] = layers
+    return cfg.replace(**kw)
+
+
+def family_plan(cfg):
+    """make_plan of the config's sparse FFN under backend "pallas" (hot
+    0.4, cold-active 0.2, clusters of 128 at recurrentgemma-9b's and
+    seamless's widths), or None where there is no FFN (mamba2)."""
+    s = cfg.sparse_ffn
+    if not (s.enabled and cfg.d_ff):
+        return None
+    return make_plan(cfg.d_ff, s.hot_ratio, s.cold_active_ratio,
+                     s.cluster_size, backend="pallas")
+
+
+def family_batch(cfg, B, S, seed=0):
+    """Uniform token ids (B, S) on the card and, for encdec, frame
+    embeddings (B, num_frames, D) * 0.1, from a seeded generator."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                     device="cuda", dtype=torch.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((B, cfg.num_frames, cfg.d_model),
+                                      generator=g, device="cuda") * 0.1
+    return batch
+
+
+def decode_ffn(model):
+    """The FFN modules that a decode step runs under the plan, in order:
+    every block's of the hybrid, every decoder layer's of the encdec."""
+    m = model.module
+    layers = m.dec_layers if model.cfg.family == "encdec" else m.layers
+    return [l.ffn for l in layers if hasattr(l, "ffn")]
+
+
+def ffn_x_spy(ffn0):
+    """A spy on blocks.ffn_apply that records the FFN input rows (D,) of
+    `ffn0`'s calls under a plan (the decode's, the kernel's x)."""
+    from repro_torch.models import blocks
+    xs, inner = [], blocks.ffn_apply
+
+    def spy(w, pred, x, activation, sparse_cfg, plan, *a, **k):
+        if w is ffn0.w and plan is not None:
+            xs.append(x.detach().reshape(-1, x.shape[-1]).clone())
+        return inner(w, pred, x, activation, sparse_cfg, plan, *a, **k)
+    return (blocks, "ffn_apply", spy), xs
+
+
+def family_decode(model, plan, B, S, spy=None):
+    """One prefill of S tokens (B rows) through the Model API, then
+    FAMILY_STEPS greedy decode steps under `plan`: each step's
+    synchronized wall, the prefill's, the peak device memory above the
+    start's, and fused_cold_ffn's launches, counted from 0 before the
+    prefill and (with every other kernel's, which must stay 0) before the
+    decode."""
+    cfg = model.cfg
+    batch = family_batch(cfg, B, S)
+    free_cuda()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.fused_cold_ffn.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(model.module, batch, S + FAMILY_STEPS)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    prefill_launches = ops.fused_cold_ffn.launches
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    walls, toks = [], []
+    ops.set_launch_counts({k: 0 for k in ops.launch_counts()})
+    if spy is not None:
+        mod, name, fn = spy
+        inner = getattr(mod, name)
+        setattr(mod, name, fn)
+    try:
+        for _ in range(FAMILY_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(model.module, tok, cache, plan)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if logits.shape != (B, 1, cfg.vocab_padded) or not bool(
+                    torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+                raise AssertionError(f"{cfg.name} B={B}: decode logits "
+                                     f"{tuple(logits.shape)} not finite")
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            toks.append(tok[:, 0].tolist())
+    finally:
+        if spy is not None:
+            setattr(mod, name, inner)
+    counts = ops.launch_counts()
+    launches = counts.pop("fused_cold_ffn")
+    per_step = len(decode_ffn(model)) if plan is not None else 0
+    if prefill_launches or launches != per_step * FAMILY_STEPS or any(
+            counts.values()):
+        raise AssertionError(f"{cfg.name} B={B}: fused_cold_ffn launched "
+                             f"{prefill_launches} times in the prefill and "
+                             f"{launches} in {FAMILY_STEPS} decode steps, "
+                             f"expected 0 and {per_step} per step; other "
+                             f"kernels {counts}")
+    if not bool((cache["length"] == S + FAMILY_STEPS).all()):
+        raise AssertionError(f"{cfg.name}: cache length "
+                             f"{cache['length'].tolist()}")
+    if cfg.family == "hybrid":
+        # the ring of W slots holds positions S - W .. S + steps - 1, the
+        # decode's in the first slots: it wrapped
+        W = cfg.local_window
+        j = torch.arange(W, device=cache["kv_pos"].device)
+        want = torch.where(j < FAMILY_STEPS, S + j, S - W + j)
+        if S % W or not bool((cache["kv_pos"] == want).all()):
+            raise AssertionError(f"{cfg.name}: the local ring did not wrap "
+                                 f"as expected")
+    w = np.array(walls) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    return dict(prefill_ms=t_prefill * 1e3,
+                wall_ms_median=float(np.median(w)), wall_ms_first=float(w[0]),
+                wall_ms=w.tolist(), peak_bytes=peak, launches=launches,
+                launches_per_step=launches // FAMILY_STEPS, tokens=toks,
+                profile=family_profile(model, plan, cache, tok))
+
+
+def family_profile(model, plan, cache, tok, n=3):
+    """torch.profiler over n more decode steps on the same cache: device
+    busy time, kernels and fused_cold_ffn's kernels per step, and the
+    kernels that take the most device time; "not measured" when the
+    profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            logits, cache = model.decode_step(model.module, tok, cache, plan)
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3 / n
+    if busy == 0.0:
+        print("    profile: device time not measured (no CUDA events)")
+        return dict(wall_ms_per_step=wall)
+    cold = [e for e in dev if any(f"::{k}" in e.key for k in SUBKERNELS)]
+    out = dict(wall_ms_per_step=wall, device_ms_per_step=busy,
+               kernels_per_step=sum(e.count for e in dev) / n,
+               cold_kernels_per_step=sum(e.count for e in cold) / n,
+               cold_ms_per_step=sum(e.self_device_time_total
+                                    for e in cold) / 1e3 / n,
+               top={e.key[:60]: e.self_device_time_total / 1e3 / n
+                    for e in sorted(dev, key=lambda e:
+                                    -e.self_device_time_total)[:5]})
+    print(f"    B={tok.shape[0]}, profile of {n} more steps: wall {wall:.2f} "
+          f"ms/step, device busy "
+          f"{busy:.3f} ms/step ({busy / wall:.1%}), "
+          f"{out['kernels_per_step']:.0f} kernels/step, of them "
+          f"{out['cold_kernels_per_step']:.0f} fused_cold_ffn kernels "
+          f"({out['cold_ms_per_step']:.3f} ms/step); most device time: "
+          + "; ".join(f"{v:.3f} ms {k}" for k, v in out["top"].items()))
+    return out
+
+
+def family_consistency(arch, layers, prompt, B):
+    """prefill(prompt) + FAMILY_STEPS decode steps equal forward in fp32
+    (TF32 off) at full width cut to `layers`, as
+    tests/test_decode_consistency.py holds the reference: the logits of
+    positions prompt .. prompt + steps - 2 within its tolerance."""
+    cfg = family_cfg(arch, layers).replace(param_dtype="float32",
+                                           compute_dtype="float32")
+    free_cuda()
+    model = build_model(cfg, "cuda", seed=0)
+    S = prompt + FAMILY_STEPS
+    batch = family_batch(cfg, B, S, seed=1)
+    with torch.no_grad():
+        full = model.forward(model.module, batch)[:, prompt:-1]
+    _, cache = model.prefill(model.module, dict(
+        batch, tokens=batch["tokens"][:, :prompt]), S)
+    outs = []
+    for t in range(prompt, S - 1):
+        lg, cache = model.decode_step(model.module,
+                                      batch["tokens"][:, t:t + 1], cache)
+        outs.append(lg)
+    dec = torch.cat(outs, 1)[..., :cfg.vocab_size]    # past it: -1e30
+    full = full[..., :cfg.vocab_size]
+    err = float((dec - full).abs().max())
+    if not torch.allclose(dec, full, **CONSISTENCY_TOL):
+        raise AssertionError(f"{arch} ({layers} layers, fp32): decode "
+                             f"differs from forward by {err}")
+    print(f"  {arch} at full width cut to {layers} layers, fp32, B={B}: "
+          f"prefill {prompt} + {FAMILY_STEPS - 1} decode steps equal "
+          f"forward, max |diff| {err:.3e} (max |logit| "
+          f"{float(full.abs().max()):.3f}; atol 5e-3, rtol 1e-3)")
+    del model, full, dec, outs, cache
+    return err
+
+
+def phase_families(card):
+    """The ssm, hybrid and encdec families on the card through
+    build_model's uniform API: (1) each at full width in bf16
+    (mamba2-130m, 24 layers; recurrentgemma-9b, 38 layers; seamless,
+    24 encoder and 24 decoder layers over 4,096 frames), one prefill then
+    FAMILY_STEPS greedy decode steps at B 1 and 4 under make_plan's
+    "pallas" plan: finite logits, fused_cold_ffn launched once per FFN
+    layer and step (38, 24, 0) and never in the prefill, recurrentgemma's
+    local ring wrapped; the prefill's time, the wall per step, the peak
+    memory and the device busy time of 3 more steps; then the kernel on
+    layer 0's weights and x from the decode at B 1/4/32 against its
+    plain version (ids identical but for
+    near ties; y within the bf16 tolerance plus `rounding_allowance`,
+    which covers the CATS gates at zero) and timed in a CUDA graph beside
+    its bound; (2) decode against forward in fp32 at full width, cut in
+    depth; (3) one fp32 train step of each reduced config, card against
+    CPU."""
+    out = {"serve": {}, "consistency": {}, "train": {}}
+    for arch, prompt in FAMILIES:
+        free_cuda()
+        cfg = family_cfg(arch)
+        t0 = time.perf_counter()
+        model = build_model(cfg, "cuda", seed=0)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        plan = family_plan(cfg)
+        n_bytes = sum(p.numel() * p.element_size()
+                      for p in model.module.parameters())
+        enc = f"{cfg.num_encoder_layers} encoder + " \
+            if cfg.num_encoder_layers else ""
+        print(f"== phase families: {arch} at full width (D {cfg.d_model}, "
+              f"{enc}{cfg.num_layers} layers, d_ff {cfg.d_ff}, "
+              f"{cfg.param_dtype}, {n_bytes / 1e9:.2f} GB of weights, built "
+              f"in {t_build:.1f} s), prompt {prompt}"
+              + ("" if plan is None else
+                 f"; plan n_hot {plan.n_hot}, kc {plan.clusters_per_group} "
+                 f"of {(cfg.d_ff - plan.n_hot) // plan.cluster_size} "
+                 f"clusters of {plan.cluster_size}"))
+        runs, xs = {}, []
+        ffns = decode_ffn(model)
+        for B in FAMILY_BATCHES:
+            spy, rows = ffn_x_spy(ffns[0]) if ffns else (None, [])
+            r = family_decode(model, plan, B, prompt, spy)
+            xs += rows
+            runs[B] = r
+            print(f"  B={B}: prefill {r['prefill_ms']:.1f} ms; decode wall "
+                  f"per step median {r['wall_ms_median']:.2f} ms (first "
+                  f"{r['wall_ms_first']:.2f}); fused_cold_ffn "
+                  f"{r['launches_per_step']} launches per step; peak device "
+                  f"memory {r['peak_bytes'] / 2**20:.1f} MiB above the "
+                  f"weights")
+        kt = {}
+        if plan is not None:
+            rows = torch.cat(xs)
+            if rows.shape[0] < max(ARCH_BATCHES):
+                raise AssertionError(f"{arch}: {rows.shape[0]} rows of x")
+            print(f"  fused_cold_ffn on layer 0, x from the decode "
+                  f"({cfg.activation}, R {ffns[0].w.shape[1]}):")
+            kt = arch_kernel(cfg, ffns[0], lambda B: plan, rows,
+                             rounding=True)
+        out["serve"][arch] = dict(
+            layers=cfg.num_layers, encoder_layers=cfg.num_encoder_layers,
+            prompt=prompt, weight_bytes=n_bytes, build_s=t_build,
+            runs=runs, kernels=kt,
+            launches=sum(r["launches"] for r in runs.values()),
+            launches_per_step=runs[1]["launches_per_step"])
+        del model, ffns, xs, plan
+    free_cuda()
+    print("== phase families: decode against forward, fp32 at full width "
+          f"({card})")
+    for arch, layers, prompt, B in FAMILY_CONSISTENCY:
+        out["consistency"][arch] = dict(
+            layers=layers, prompt=prompt,
+            max_abs_diff=family_consistency(arch, layers, prompt, B))
+    free_cuda()
+    print("== phase families: one fp32 train step, card against CPU")
+    for arch, _ in FAMILIES:
+        out["train"][arch] = train_parity(get_config(arch).reduced())
+    return out
+
+
 PHASES = ("kernel", "quant", "times", "gather", "serve", "parity", "api",
           "fleet", "archs", "vlm", "moe", "plan", "tp",
-          "train")
+          "train", "families")
 
 
 def main(argv=None):
@@ -3236,6 +3559,7 @@ def main(argv=None):
     plan_out = timed("plan", phase_plan, card)
     tp_out = timed("tp", phase_tp, card)
     train_out = timed("train", phase_train, card)
+    fam_out = timed("families", phase_families, card)
     if run != set(PHASES):
         print(f"chip_smoke: ran phases {sorted(run)} only; no summary")
         return 0
@@ -3248,7 +3572,8 @@ def main(argv=None):
         "name": "fused_cold_ffn", "route": "cuda",
         "source": src + "fused_cold_ffn.cu",
         "replaces": "src/repro/kernels/cluster_gather_ffn.py:275",
-        "checked": True, "launches": serve["launches"],
+        "checked": True, "launches": serve["launches"] + sum(
+            v["launches"] for v in fam_out["serve"].values()),
         "max_abs_err": max([max_err] + [t["max_abs_err"]
                                          for v in archs.values()
                                          for t in v["kernels"].values()]
@@ -3256,11 +3581,16 @@ def main(argv=None):
                               for t in v["kernels"].values()]
                            + [t["max_abs_err"]
                               for t in train_out["kernels"].values()]
+                           + [t["max_abs_err"]
+                              for v in fam_out["serve"].values()
+                              for t in v["kernels"].values()]
                            + [r["max_abs_err"] for v in plan_out.values()
                               for r in v["rows"]]),
         "ms": t1["ms"], "plain_ms": t1["plain_ms"],
         "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
         "library_ms": None, "graph_ms": t1["graph_ms"], "shape": shape,
+        "launches_counted": "phase 4's fp16 serve and phase families' "
+                            "decode steps",
         "subkernel_us": t1["subkernel_us"],
         "by_batch": {str(b): v for (sd, b), v in times.items()
                      if sd == "fp16"},
@@ -3293,14 +3623,22 @@ def main(argv=None):
             "train steps (phase train)":
                 train_out["launches_train_step"]["fused_cold_ffn"],
             **{f"trained {train_out['arch']} stream, {m} (phase train)":
-               r["launches"] for m, r in train_out["serve"].items()}},
+               r["launches"] for m, r in train_out["serve"].items()},
+            **{f"{a} decode, {FAMILY_STEPS} steps at B "
+               f"{'/'.join(map(str, FAMILY_BATCHES))} (phase families)":
+               v["launches"] for a, v in fam_out["serve"].items()}},
         "by_model": {a: {"layers": v["layers"],
                          "launches_per_step": v["launches"] // v["steps"],
                          "by_batch": {str(b): t
                                       for b, t in v["kernels"].items()}}
                      for a, v in archs.items()},
+        "by_family": {a: {"layers": v["layers"],
+                          "launches_per_step": v["launches_per_step"],
+                          "by_batch": {str(b): t
+                                       for b, t in v["kernels"].items()}}
+                      for a, v in fam_out["serve"].items()},
         "fleet": fleet, "moe": moe_out, "plan": plan_out, "tp": tp_out,
-        "train": train_out}, {
+        "train": train_out, "families": fam_out}, {
         "name": "fused_cold_ffn (quant mode)", "route": "cuda",
         "source": src + "fused_cold_ffn.cu",
         "replaces": "src/repro/kernels/cluster_gather_ffn.py:148",

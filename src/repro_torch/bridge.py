@@ -1,16 +1,23 @@
 """Weights from the reference's parameter layout.
 
-`params_from_numpy(tree, cfg)` builds the port's model (`DenseModel`,
-or `MoEModel` for the moe family) from the JAX package's parameter
-pytree with every leaf given as a numpy array (`load_checkpoint` reads
-that tree from a checkpoint the reference saved):
+`params_from_numpy(tree, cfg)` builds the port's model of cfg's family
+(`models.model.family`) from the JAX package's parameter pytree with
+every leaf given as a numpy array (`load_checkpoint` reads that tree
+from a checkpoint the reference saved). `model_tree` is the one
+description of that layout, which loading, `params_to_numpy` and
+`shard_model` all walk. The dense and vlm tree:
 {"embed", "out_norm", ["lm_head"], "layers": {"ln1", "ln2", "attn":
 {"wq", "wk", "wv", "wo", ["qk": {"q_norm", "k_norm"}]}, "ffn": {"w",
 ["pred": {"A", "B"}], ["wq", "wsc", ["wout"]]}}}, layer leaves stacked
 (L, ...); the qk-norm weights are there when the config sets qk_norm,
 and the FFN's wq/wsc/wout are the stored cold bundles of int8 /
 int4-mixed storage. A moe tree has "moe": {"router", "experts",
-["shared": {"w"}]} in place of "ffn". It reads numpy alone. bfloat16 leaves cross over bit for bit through a uint16 view:
+["shared": {"w"}]} in place of "ffn". The ssm tree stacks mamba's
+layers (`wz`, `wx`, `wB`, `wC`, `wdt`, the conv, `A_log`, `D`, the
+norms); the hybrid tree stacks its blocks by group (`groups.b{i}`) with
+the remainder blocks `rem{j}`; the encdec tree has `enc_layers`,
+`dec_layers` (with `lnx`, `xattn`) and `enc_norm`. It reads numpy
+alone. bfloat16 leaves cross over bit for bit through a uint16 view:
 numpy holds them as ml_dtypes' extension type, or, read back from a
 `.npy` without it, as bare 2-byte voids or their uint16 bits, so a
 leaf's declared dtype (`dtypes`, from a checkpoint's manifest) wins over
@@ -30,11 +37,14 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.checkpoint.ckpt import SEP, Tree, restore_numpy
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec, rglru
 from repro_torch.models.dense import DenseModel
 from repro_torch.models.moe import MoEModel
+from repro_torch.models.model import family
 from repro_torch.models.modules import resolve_device
 from repro_torch.parallel import ShardLayout, shard_layout
 
@@ -127,72 +137,63 @@ def shard_params(tree, cfg: ModelConfig, plan, rank: int, n: int):
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device=None,
-                      dtypes=None, shard=None, plan=None) -> DenseModel:
-    """The port's model on `device` (default `cuda`) holding `tree`'s
-    weights; `dtypes` (the same nesting) declares leaves' dtypes. With
-    `shard`, a ShardGroup of n > 1 ranks, the model holds only its
+                      dtypes=None, shard=None, plan=None) -> nn.Module:
+    """The port's model of cfg's family on `device` (default `cuda`)
+    holding `tree`'s weights: every leaf of `model_tree` read from the
+    same place in `tree` (a per-layer list from the stacked leaf's rows),
+    and the stored cold bundles wq / wsc / wout where the tree has them.
+    `dtypes` (the same nesting) declares leaves' dtypes. With `shard`, a
+    ShardGroup of n > 1 ranks, a dense, vlm or moe model holds only its
     rank's slices for serving `plan` (an ExecutionPlan; moe needs
     none)."""
-    model_type = MoEModel if cfg.family == "moe" else DenseModel
-    layout = None
+    kw = {}
     if shard is not None and shard.size > 1:
+        if cfg.family not in ("dense", "vlm", "moe"):
+            raise ValueError(f"{cfg.name}: the {cfg.family} family has no "
+                             f"tensor-parallel layout")
         if plan is None and not cfg.num_experts:
             raise ValueError("a dense model's slice follows the plan's "
                              "buckets: pass plan=")
-        layout = shard_layout(cfg, plan, shard.rank, shard.size)
-        tree = _shard_tree(tree, cfg, layout)
-    model = model_type(cfg, resolve_device(device), layout=layout)
+        kw["layout"] = shard_layout(cfg, plan, shard.rank, shard.size)
+        tree = _shard_tree(tree, cfg, kw["layout"])
+    model = family(cfg)[0](cfg, resolve_device(device), seed=None, **kw)
+    loaded = set()
 
-    def load(param, *keys, layer=None):
+    def load(node, keys):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                load(v, keys + (k,))
+            return
         a, dt = _leaf(tree, dtypes, *keys)
         name = ".".join(keys)
-        if layer is not None:
-            a, name = a[layer], f"{name}[{layer}]"
-        _load(param, a, name, dt)
-
-    load(model.embed, "embed")
-    load(model.out_norm, "out_norm")
-    if model.lm_head is not None:
-        load(model.lm_head, "lm_head")
-    for l, layer in enumerate(model.layers):
-        load(layer.ln1, "layers", "ln1", layer=l)
-        load(layer.ln2, "layers", "ln2", layer=l)
-        for k in ("wq", "wk", "wv", "wo"):
-            load(getattr(layer.attn, k), "layers", "attn", k, layer=l)
-        if cfg.qk_norm:
-            for k in ("q_norm", "k_norm"):
-                load(getattr(layer.attn, k), "layers", "attn", "qk", k,
-                     layer=l)
-        if model_type is MoEModel:
-            _load_moe(layer.moe, load, l)
-        else:
-            _load_ffn(layer.ffn, tree, dtypes, load, l, model.device)
+        for i, p in (enumerate(node) if isinstance(node, list) else
+                     [(None, node)]):
+            _load(p, a if i is None else a[i],
+                  name if i is None else f"{name}[{i}]", dt)
+            loaded.add(id(p))
+    load(model_tree(model), ())
+    missed = [n for n, p in model.named_parameters() if id(p) not in loaded]
+    if missed:
+        raise AssertionError(f"model_tree misses {missed}")
+    stored = tree.get("layers", {}).get("ffn", {})
+    dts = ((dtypes or {}).get("layers") or {}).get("ffn") or {}
+    for k in ("wq", "wsc", "wout"):
+        for l, layer in enumerate(model.layers if k in stored else ()):
+            _load_stored(layer.ffn, k, stored[k][l], dts.get(k), l)
     return model
 
 
-def _load_ffn(ffn, tree, dtypes, load, l, device):
-    load(ffn.w, "layers", "ffn", "w", layer=l)
-    stored = _leaf(tree, dtypes, "layers", "ffn")[0]
+def _load_stored(ffn, k, a, dtype, l):
+    """Layer l's stored cold bundle `k` (int8 / int4-mixed storage), a
+    plain tensor of the FFN: wq (N, R, D), wsc (N, R) or wout (N, R,
+    D)."""
     N, R, D = ffn.w.shape
-    for k, shape in (("wq", (N, R, D)), ("wsc", (N, R)),
-                     ("wout", (N, R, D))):
-        if k in stored:
-            a, dt = _leaf(tree, dtypes, "layers", "ffn", k)
-            t = _tensor(a[l], dt)
-            if tuple(t.shape) != shape:
-                raise ValueError(f"layers.ffn.{k}[{l}]: shape "
-                                 f"{tuple(t.shape)}, expected {shape}")
-            setattr(ffn, k, t.to(device))
-    if ffn.pred_A is not None:
-        load(ffn.pred_A, "layers", "ffn", "pred", "A", layer=l)
-        load(ffn.pred_B, "layers", "ffn", "pred", "B", layer=l)
-
-
-def _load_moe(moe, load, l):
-    load(moe.router, "layers", "moe", "router", layer=l)
-    load(moe.experts, "layers", "moe", "experts", layer=l)
-    if moe.shared is not None:
-        load(moe.shared, "layers", "moe", "shared", "w", layer=l)
+    t = _tensor(a, dtype)
+    shape = (N, R) if k == "wsc" else (N, R, D)
+    if tuple(t.shape) != shape:
+        raise ValueError(f"layers.ffn.{k}[{l}]: shape {tuple(t.shape)}, "
+                         f"expected {shape}")
+    setattr(ffn, k, t.to(ffn.w.device))
 
 
 def load_checkpoint(path: str, cfg: ModelConfig, device=None, shard=None,
@@ -207,35 +208,91 @@ def load_checkpoint(path: str, cfg: ModelConfig, device=None, shard=None,
                              shard=shard, plan=plan)
 
 
-def model_tree(model: DenseModel) -> dict:
-    """The reference-layout tree of a whole port model, its layer leaves
-    as per-layer lists of the model's own tensors (no copy)."""
-    layers = model.layers
-    attn = {k: [getattr(l.attn, k) for l in layers]
-            for k in ("wq", "wk", "wv", "wo")}
-    if model.cfg.qk_norm:
-        attn["qk"] = {k: [getattr(l.attn, k) for l in layers]
-                      for k in ("q_norm", "k_norm")}
-    out = {"embed": model.embed, "out_norm": model.out_norm,
-           "layers": {"ln1": [l.ln1 for l in layers],
-                      "ln2": [l.ln2 for l in layers], "attn": attn}}
+def _stack(trees: list) -> dict:
+    """Per-layer trees of one layout -> one tree of per-layer lists (the
+    reference's stacked layers)."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return list(trees)
+
+
+def _attn_leaves(attn) -> dict:
+    out = {k: getattr(attn, k) for k in ("wq", "wk", "wv", "wo")}
+    if attn.q_norm is not None:
+        out["qk"] = {"q_norm": attn.q_norm, "k_norm": attn.k_norm}
+    return out
+
+
+def _ffn_leaves(ffn) -> dict:
+    out = {"w": ffn.w}
+    for k in ("wq", "wsc", "wout"):
+        if getattr(ffn, k) is not None:
+            out[k] = getattr(ffn, k)
+    if ffn.pred_A is not None:
+        out["pred"] = {"A": ffn.pred_A, "B": ffn.pred_B}
+    return out
+
+
+def _dense_layer(layer) -> dict:
+    out = {"ln1": layer.ln1, "ln2": layer.ln2,
+           "attn": _attn_leaves(layer.attn)}
+    if isinstance(layer, MoEModel.layer_type):
+        moe = {"router": layer.moe.router, "experts": layer.moe.experts}
+        if layer.moe.shared is not None:
+            moe["shared"] = {"w": layer.moe.shared}
+        out["moe"] = moe
+    else:
+        out["ffn"] = _ffn_leaves(layer.ffn)
+    return out
+
+
+def _ssm_layer(layer) -> dict:
+    return dict(layer.named_parameters())      # the reference's names
+
+
+def _hybrid_block(block) -> dict:
+    if block.kind == "attn":
+        return {"ln": block.ln, "attn": _attn_leaves(block.attn),
+                "ln2": block.ln2, "ffn": _ffn_leaves(block.ffn)}
+    return {"ln": block.ln, "w_in": block.w_in, "w_gate": block.w_gate,
+            "conv_w": block.conv_w, "conv_b": block.conv_b,
+            "lru": dict(block.lru.named_parameters()), "w_out": block.w_out,
+            "ln2": block.ln2, "ffn": _ffn_leaves(block.ffn)}
+
+
+def _encdec_layer(layer) -> dict:
+    out = {"ln1": layer.ln1, "attn": _attn_leaves(layer.attn),
+           "ln2": layer.ln2, "ffn": _ffn_leaves(layer.ffn)}
+    if isinstance(layer, encdec.DecLayer):
+        out.update(lnx=layer.lnx, xattn=_attn_leaves(layer.xattn))
+    return out
+
+
+def model_tree(model) -> dict:
+    """The reference-layout tree of a whole port model, its stacked
+    layer leaves as per-layer lists of the model's own tensors (no
+    copy). The hybrid family's are stacked by group (`groups.b{i}`, one
+    entry per group), its remainder blocks (`rem{j}`) are single."""
+    cfg = model.cfg
+    out = {"embed": model.embed, "out_norm": model.out_norm}
+    if cfg.family == "ssm":
+        out["layers"] = _stack([_ssm_layer(l) for l in model.layers])
+    elif cfg.family == "hybrid":
+        n_groups, rem = rglru.layout(cfg)
+        P = len(cfg.block_pattern)
+        out["groups"] = {f"b{i}": _stack([
+            _hybrid_block(model.layers[g * P + i]) for g in range(n_groups)])
+            for i in range(P)}
+        for j in range(len(rem)):
+            out[f"rem{j}"] = _hybrid_block(model.layers[n_groups * P + j])
+    elif cfg.family == "encdec":
+        out.update(enc_norm=model.enc_norm, enc_layers=_stack(
+            [_encdec_layer(l) for l in model.enc_layers]),
+            dec_layers=_stack([_encdec_layer(l) for l in model.dec_layers]))
+    else:
+        out["layers"] = _stack([_dense_layer(l) for l in model.layers])
     if model.lm_head is not None:
         out["lm_head"] = model.lm_head
-    if isinstance(model, MoEModel):
-        moe = {"router": [l.moe.router for l in layers],
-               "experts": [l.moe.experts for l in layers]}
-        if layers[0].moe.shared is not None:
-            moe["shared"] = {"w": [l.moe.shared for l in layers]}
-        out["layers"]["moe"] = moe
-        return out
-    ffn = {"w": [l.ffn.w for l in layers]}
-    for k in ("wq", "wsc", "wout"):
-        if getattr(layers[0].ffn, k) is not None:
-            ffn[k] = [getattr(l.ffn, k) for l in layers]
-    if layers[0].ffn.pred_A is not None:
-        ffn["pred"] = {"A": [l.ffn.pred_A for l in layers],
-                       "B": [l.ffn.pred_B for l in layers]}
-    out["layers"]["ffn"] = ffn
     return out
 
 

@@ -33,10 +33,14 @@ from repro_torch.train.steps import make_train_step
 
 
 def add_modal_inputs(batch, cfg, rng):
-    """The vlm's stub vision frontend: patch embeddings (B, P, D) drawn
-    from `rng` (a numpy Generator) exactly as the reference draws them."""
+    """The stub frontends, drawn from `rng` (a numpy Generator) exactly
+    as the reference draws them: the encdec's frame embeddings (B,
+    num_frames, D), the vlm's patch embeddings (B, P, D)."""
+    B = batch["tokens"].shape[0]
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.num_frames, cfg.d_model)).astype(np.float32) * 0.1
     if cfg.family == "vlm":
-        B = batch["tokens"].shape[0]
         batch["patch_embeds"] = rng.standard_normal(
             (B, cfg.num_image_tokens, cfg.d_model)).astype(np.float32) * 0.1
     return batch

@@ -1,7 +1,9 @@
 """Transformer building blocks: the attention block (full + decode) and
 the FFN block (dense or PowerInfer-2 hybrid).
 
-Counterpart of `repro/models/blocks.py`. Parameters keep the reference's
+Counterpart of `repro/models/blocks.py`, and `run_layer`, the layer
+call with the reference's `jax.checkpoint` of scanned layers (remat).
+Parameters keep the reference's
 layouts (wq (d, H*dh), ffn w (N, R, D), predictor A (D, r) / B (r, N)) so
 its weights load unchanged. They are built frozen (`requires_grad=False`),
 as serving wants them; the train step (`train/steps.py`) makes them
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.predictor import init_predictor
@@ -26,6 +29,14 @@ from repro_torch.models.attention import (
     apply_rotary, decode_attention, flash_attention, maybe_qk_norm)
 from repro_torch.models.kv_cache import write_kv
 from repro_torch.models.modules import dense_init
+
+
+def run_layer(fn, *args, remat: bool = False):
+    """fn(*args); with `remat` while autograd records, the layer's
+    activations are recomputed in the backward pass instead of kept."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -106,6 +117,15 @@ def attn_decode(p: Attention, x, cfg: ModelConfig, angles, k_cache, v_cache,
     o = decode_attention(q, k_cache, v_cache, kv_pos, pos, window=window)
     return _out(p, o.reshape(*x.shape[:2], -1), cfg, shard), k_cache, \
         v_cache
+
+
+def cross_attn(p: Attention, x, mem_k, mem_v, cfg: ModelConfig):
+    """Attention of x (B, S, D) to precomputed encoder memory mem_k /
+    mem_v (B, F, KV, dh): no RoPE, no mask."""
+    B, S, _ = x.shape
+    q = (x @ p.wq).reshape(B, S, cfg.num_heads, cfg.d_head)
+    o = flash_attention(q, mem_k, mem_v, causal=False)
+    return o.reshape(B, S, -1) @ p.wo
 
 
 # ------------------------------------------------------------------ FFN ----

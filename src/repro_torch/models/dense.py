@@ -19,13 +19,14 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.clusters import HybridPlan
 from repro_torch.models import blocks
 from repro_torch.models.attention import rope_angles
-from repro_torch.models.kv_cache import init_full_cache, write_pos
+from repro_torch.models.kv_cache import (
+    init_full_cache, init_ring_cache, prefill_slots, write_pos,
+    write_prefill)
 from repro_torch.models.modules import (
     dense_init, dtype_of, embed_init, resolve_device, rms_norm)
 
@@ -67,9 +68,6 @@ class DenseModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device, layout=None):
         super().__init__()
-        if cfg.sliding_window:
-            raise NotImplementedError(
-                f"{cfg.name}: sliding-window (ring) caches are not ported")
         self.cfg = cfg
         dtype = dtype_of(cfg.param_dtype)
         self.embed = blocks._param((cfg.vocab_padded, cfg.d_model), dtype,
@@ -108,20 +106,24 @@ class DenseModel(nn.Module):
         return self
 
     def init_cache(self, batch: int, seq_len: int):
+        """The cache of `seq_len` positions: a ring of
+        `cfg.sliding_window` slots when the window is shorter, else a
+        full cache of `seq_len` slots."""
         cfg = self.cfg
-        return init_full_cache(cfg.num_layers, batch, seq_len,
-                               self.kv_heads, cfg.d_head,
+        return init_ring_cache(cfg.num_layers, batch, seq_len,
+                               cfg.sliding_window, self.kv_heads, cfg.d_head,
                                dtype_of(cfg.param_dtype), self.device)
 
 
 def make_model(cfg: ModelConfig, device=None, seed: Optional[int] = 0,
-               model_type=DenseModel):
+               model_type=DenseModel, layout=None):
     """The dense model (or `model_type`) on `device` (default `cuda`;
     raises without a card), with random weights from a `torch.Generator`
     seeded by `seed` on that device, or zero weights to be filled when
-    `seed` is None."""
+    `seed` is None; with `layout` (a `parallel.ShardLayout`), only that
+    rank's slices."""
     device = resolve_device(device)
-    model = model_type(cfg, device)
+    model = model_type(cfg, device, layout=layout)
     if seed is not None:
         model.init_weights(torch.Generator(device=device).manual_seed(seed))
     return model
@@ -155,7 +157,8 @@ def lm_logits(model: DenseModel, x):
 def _layer_full(layer, x, cfg: ModelConfig, angles, plan, shard):
     """One layer over the full sequence: (x', (k, v))."""
     a, kv = blocks.attn_full(layer.attn, rms_norm(x, layer.ln1, cfg.norm_eps),
-                             cfg, angles, causal=True, shard=shard)
+                             cfg, angles, causal=True,
+                             window=cfg.sliding_window, shard=shard)
     x = x + a
     x = x + layer.ffn_block(rms_norm(x, layer.ln2, cfg.norm_eps), cfg, plan,
                             shard=shard)
@@ -169,14 +172,10 @@ def forward_from_embeds(model: DenseModel, x, angles, *, plan=None,
     backward pass instead of keeping its activations (the reference's
     `jax.checkpoint` of the scanned layer)."""
     cfg = model.cfg
-    remat = cfg.remat and torch.is_grad_enabled()
     kvs = []
     for layer in model.layers:
-        if remat:
-            x, kv = checkpoint(_layer_full, layer, x, cfg, angles, plan,
-                               shard, use_reentrant=False)
-        else:
-            x, kv = _layer_full(layer, x, cfg, angles, plan, shard)
+        x, kv = blocks.run_layer(_layer_full, layer, x, cfg, angles, plan,
+                                 shard, remat=cfg.remat)
         if collect_kv:
             kvs.append(kv)
     return x, kvs
@@ -201,20 +200,21 @@ def prefill_from_embeds(model: DenseModel, x, angles,
                         max_len: Optional[int] = None, shard=None):
     """Dense prefill of embeddings x (B, S, D) under RoPE `angles`.
     Returns (logits (B, 1, V) of the last position, cache padded to
-    `max_len` slots with kv_pos = -1 in the padding). `shard`: the
-    rank's group when the model is one rank's slice."""
+    `max_len` slots with kv_pos = -1 in the padding). With a sliding
+    window W < S the cache is the ring of the last W tokens (then S must
+    be a multiple of W, so that token p sits in slot p % W; it raises
+    otherwise). `shard`: the rank's group when the model is one rank's
+    slice."""
+    cfg = model.cfg
     B, S = x.shape[:2]
+    # the padded full cache also past a window that the prompt does not
+    # fill, as the reference's
+    T, n = prefill_slots(S, cfg.sliding_window, max_len)
     x, kvs = forward_from_embeds(model, x, angles, collect_kv=True,
                                  shard=shard)
-    T = max_len or S
-    cache = model.init_cache(B, T)
-    for l, (k, v) in enumerate(kvs):
-        cache["k"][l, :, :S] = k
-        cache["v"][l, :, :S] = v
-    cache["kv_pos"][:, :S] = torch.arange(S, dtype=torch.int32,
-                                          device=x.device)
-    cache["length"].fill_(S)
-    return lm_logits(model, x[:, -1:]), cache
+    cache = init_full_cache(cfg.num_layers, B, T, model.kv_heads,
+                            cfg.d_head, dtype_of(cfg.param_dtype), x.device)
+    return lm_logits(model, x[:, -1:]), write_prefill(cache, kvs, S, n)
 
 
 @torch.no_grad()
@@ -256,7 +256,8 @@ def decode_step(model: DenseModel, tokens, cache,
     for l, layer in enumerate(model.layers):
         a, _, _ = blocks.attn_decode(
             layer.attn, rms_norm(x, layer.ln1, cfg.norm_eps), cfg, angles,
-            cache["k"][l], cache["v"][l], kv_pos, pos, shard=shard)
+            cache["k"][l], cache["v"][l], kv_pos, pos,
+            window=cfg.sliding_window, shard=shard)
         x = x + a
         f = layer.ffn_block(rms_norm(x, layer.ln2, cfg.norm_eps), cfg, plan,
                             return_indices=collect_indices,

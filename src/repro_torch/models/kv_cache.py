@@ -2,7 +2,9 @@
 
 Counterpart of `repro/models/kv_cache.py`. The cache is a dict of
 tensors: k/v (L, B, T, KV, dh), kv_pos (B, T) absolute position of each
-slot (-1 = empty) and length (B,). Unlike the reference's immutable
+slot (-1 = empty) and length (B,). A full cache has a slot per position;
+the sliding-window (ring) cache has T = window slots, token `pos` in
+slot pos % T. Unlike the reference's immutable
 arrays, writes here update the tensors in place (no copy of the cache per
 token); every caller hands the cache on and never reuses an old one.
 
@@ -29,12 +31,56 @@ def init_full_cache(n_layers, batch, s_max, kv_heads, d_head, dtype,
     }
 
 
+def init_ring_cache(n_layers, batch, seq_len, window, kv_heads, d_head,
+                    dtype, device):
+    """The self-attention cache of `seq_len` positions under a sliding
+    `window` (0: none): a ring of `window` slots per row, token `pos` in
+    slot pos % window with kv_pos its absolute position (-1 = empty),
+    when the window is the shorter, else a full cache of `seq_len`
+    slots. seq_len None gives the ring whatever the length."""
+    T = window if seq_len is None or (window and window < seq_len) \
+        else seq_len
+    return init_full_cache(n_layers, batch, T, kv_heads, d_head, dtype,
+                           device)
+
+
+def cache_slot(cache_k_layer, pos):
+    """Write slot of each batch row, pos (B,) -> pos % T, T the cache's
+    slots (dim 1): the ring's slot, and `pos` itself in a full cache."""
+    return (pos % cache_k_layer.shape[1]).long()
+
+
+def prefill_slots(S: int, window: int, max_len=None):
+    """(slots T, tokens kept n) of the cache a prefill of S tokens fills:
+    with a window W < S the ring of W slots keeping the last W tokens,
+    token p in slot p % W, so S must be a multiple of W (it raises
+    otherwise); else `max_len` (default S) slots keeping all S."""
+    if window and window < S:
+        if S % window:
+            raise ValueError(f"prefill length {S} must be a multiple of "
+                             f"the ring window {window}")
+        return window, window
+    return max_len or S, S
+
+
+def write_prefill(cache, kvs, S: int, n: int, keys=("k", "v")):
+    """Write the last n of the S prefill tokens' k / v (each layer's (B,
+    S, KV, dh) in `kvs`) into the first n slots of cache[keys] (L, B, T,
+    KV, dh), their positions into kv_pos, and S into length."""
+    for l, (k, v) in enumerate(kvs):
+        cache[keys[0]][l, :, :n] = k[:, S - n:]
+        cache[keys[1]][l, :, :n] = v[:, S - n:]
+    cache["kv_pos"][:, :n] = torch.arange(S - n, S, dtype=torch.int32,
+                                          device=cache["kv_pos"].device)
+    cache["length"].fill_(S)
+    return cache
+
+
 def write_kv(k_layer, v_layer, k_new, v_new, pos):
     """Insert one token per batch row at slot pos % T, in place.
     k_layer (B, T, KV, dh); k_new (B, 1, KV, dh); pos (B,)."""
-    T = k_layer.shape[1]
     rows = torch.arange(k_layer.shape[0], device=k_layer.device)
-    slot = (pos % T).long()
+    slot = cache_slot(k_layer, pos)
     k_layer[rows, slot] = k_new[:, 0]
     v_layer[rows, slot] = v_new[:, 0]
     return k_layer, v_layer
@@ -42,9 +88,8 @@ def write_kv(k_layer, v_layer, k_new, v_new, pos):
 
 def write_pos(kv_pos, pos):
     """Record the absolute position `pos` (B,) at slot pos % T, in place."""
-    T = kv_pos.shape[1]
     rows = torch.arange(kv_pos.shape[0], device=kv_pos.device)
-    kv_pos[rows, (pos % T).long()] = pos.to(kv_pos.dtype)
+    kv_pos[rows, cache_slot(kv_pos, pos)] = pos.to(kv_pos.dtype)
     return kv_pos
 
 

@@ -1,47 +1,76 @@
-"""build_model(cfg) — the family dispatcher of the training path
+"""build_model(cfg) — the family dispatcher of the uniform Model API
 (counterpart of `repro/models/model.py`).
 
 A `Model` pairs the family's parameters (an `nn.Module`: `DenseModel`
-for dense and vlm, `MoEModel` for moe) with the family's forward over a
-batch dict, `forward(module, batch, plan=None) -> logits (B, S, V)`:
-{"tokens"} for dense and moe, {"tokens", "patch_embeds"} for vlm, whose
-logits cover the image positions too (B, P + S, V). The module's
+for dense and vlm, `MoEModel` for moe, `SSMModel`, `HybridModel`,
+`EncDecModel`) with the family's functions over a batch dict:
+
+* `forward(module, batch, plan=None) -> logits (B, S, V)`;
+* `prefill(module, batch, max_len=None) -> (logits (B, 1, V), cache)`;
+* `decode_step(module, tokens, cache, plan=None) -> (logits, cache)`,
+  the cache updated in place;
+* `init_cache(batch, seq_len)`.
+
+The batch is {"tokens"} for dense, moe, ssm and hybrid, {"tokens",
+"patch_embeds"} for vlm, whose logits cover the image positions too
+(B, P + S, V), and {"tokens", "frames"} for encdec. The module's
 parameters stay frozen (`requires_grad=False`) as built; the train step
-(`train/steps.py`) records autograd on them only while it differentiates.
+(`train/steps.py`) records autograd on them only while it
+differentiates.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable
 
+from torch import nn
+
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import dense, moe, vlm
-
-# families whose forward, prefill and decode are not ported
-UNPORTED = ("ssm", "hybrid", "encdec")
+from repro_torch.models import dense, encdec, moe, rglru, ssm, vlm
 
 
-def _token_forward(module, batch, plan=None):
-    """dense and moe (whose layers reach their MoE through the same walk;
-    a plan only shapes the moe trace, which the forward does not keep)."""
-    return dense.forward(module, batch["tokens"], plan)
+def _over_batch(fn, *keys):
+    """fn(module, batch[tokens], batch[key]..., arg) as (module, batch,
+    arg=None): the third argument is the forward's plan or the prefill's
+    max_len."""
+    def call(module, batch, arg=None):
+        return fn(module, batch["tokens"], *(batch[k] for k in keys), arg)
+    return call
 
 
-def _vlm_forward(module, batch, plan=None):
-    return vlm.forward(module, batch["tokens"], batch["patch_embeds"], plan)
+def _vlm_decode_step(module, tokens, cache, plan=None):
+    """dense decode under the text's M-RoPE positions."""
+    return dense.decode_step(module, tokens, cache, plan, angles_fn=lambda
+                             pos: vlm.decode_angles(module.cfg, pos))
 
 
-_FAMILIES = {"dense": (dense.make_model, _token_forward),
-             "moe": (moe.make_model, _token_forward),
-             "vlm": (vlm.make_model, _vlm_forward)}
+# family -> (make_model, forward, prefill, decode_step); moe's layers
+# reach their MoE FFN through the dense walk (a plan only shapes the moe
+# trace, which these functions do not keep)
+_FAMILIES = {
+    "dense": (dense.make_model, _over_batch(dense.forward),
+              _over_batch(dense.prefill), dense.decode_step),
+    "moe": (moe.make_model, _over_batch(dense.forward),
+            _over_batch(dense.prefill), dense.decode_step),
+    "vlm": (vlm.make_model, _over_batch(vlm.forward, "patch_embeds"),
+            _over_batch(vlm.prefill, "patch_embeds"), _vlm_decode_step),
+    "ssm": (ssm.make_model, _over_batch(ssm.forward),
+            _over_batch(ssm.prefill), ssm.decode_step),
+    "hybrid": (rglru.make_model, _over_batch(rglru.forward),
+               _over_batch(rglru.prefill), rglru.decode_step),
+    "encdec": (encdec.make_model, _over_batch(encdec.forward, "frames"),
+               _over_batch(encdec.prefill, "frames"), encdec.decode_step),
+}
 
 
 @dataclass(frozen=True)
 class Model:
-    """The uniform model API of training: the parameters and the
-    family's forward."""
-    module: dense.DenseModel
-    forward: Callable            # (module, batch, plan=None) -> logits
+    """The uniform model API: the parameters and the family's
+    functions."""
+    module: nn.Module
+    forward: Callable        # (module, batch, plan=None)
+    prefill: Callable        # (module, batch, max_len=None)
+    decode_step: Callable    # (module, tokens, cache, plan=None)
 
     @property
     def cfg(self) -> ModelConfig:
@@ -52,12 +81,12 @@ class Model:
         copy): what the train step differentiates and updates."""
         return dict(self.module.named_parameters())
 
+    def init_cache(self, batch: int, seq_len: int):
+        return self.module.init_cache(batch, seq_len)
 
-def _family(cfg: ModelConfig):
-    if cfg.family in UNPORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported (ROADMAP.md "
-            f"Queue 1 item 11)")
+
+def family(cfg: ModelConfig):
+    """(make_model, forward, prefill, decode_step) of cfg's family."""
     if cfg.family not in _FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
     return _FAMILIES[cfg.family]
@@ -65,13 +94,12 @@ def _family(cfg: ModelConfig):
 
 def wrap(module) -> Model:
     """The Model of a built module (e.g. `bridge.params_from_numpy`'s)."""
-    return Model(module, _family(module.cfg)[1])
+    return Model(module, *family(module.cfg)[1:])
 
 
 def build_model(cfg: ModelConfig, device=None, seed=0) -> Model:
     """The family's model on `device` (default `cuda`; raises without a
     card), random weights from a `torch.Generator` seeded by `seed`
-    (zero weights to be filled when None). Raises NotImplementedError
-    for the ssm, hybrid and encdec families."""
-    make_model, forward = _family(cfg)
-    return Model(make_model(cfg, device=device, seed=seed), forward)
+    (zero weights to be filled when None)."""
+    make_model, *fns = family(cfg)
+    return Model(make_model(cfg, device=device, seed=seed), *fns)

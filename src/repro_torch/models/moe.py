@@ -340,11 +340,13 @@ class MoEModel(dense.DenseModel):
     layer_type = MoELayer
 
 
-def make_model(cfg: ModelConfig, device=None, seed: Optional[int] = 0):
+def make_model(cfg: ModelConfig, device=None, seed: Optional[int] = 0,
+               layout=None):
     """The MoE model on `device` (default `cuda`; raises without a card),
     with random weights from a `torch.Generator` seeded by `seed`, or
     zero weights to be filled when `seed` is None."""
-    return dense.make_model(cfg, device, seed, model_type=MoEModel)
+    return dense.make_model(cfg, device, seed, model_type=MoEModel,
+                            layout=layout)
 
 
 # forward (full-sequence logits, every layer's MoE over the B*S tokens in

@@ -46,12 +46,13 @@ def build_positions(cfg: ModelConfig, batch_size: int, n_img: int,
     return pos[:, None].expand(3, batch_size, pos.shape[1])
 
 
-def make_model(cfg: ModelConfig, device=None, seed: Optional[int] = 0):
+def make_model(cfg: ModelConfig, device=None, seed: Optional[int] = 0,
+               layout=None):
     """The backbone's weights, as `dense.make_model` gives them."""
     if sum(cfg.mrope_sections) != cfg.d_head // 2:
         raise ValueError(f"{cfg.name}: M-RoPE sections {cfg.mrope_sections} "
                          f"do not split d_head // 2 = {cfg.d_head // 2}")
-    return dense.make_model(cfg, device=device, seed=seed)
+    return dense.make_model(cfg, device=device, seed=seed, layout=layout)
 
 
 def _embed(model: dense.DenseModel, tokens, patch_embeds):

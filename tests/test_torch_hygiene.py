@@ -30,7 +30,9 @@ def test_port_and_smoke_import_no_jax():
                  "repro_torch.models.moe", "repro_torch.parallel",
                  "repro_torch.optim.adamw", "repro_torch.train.steps",
                  "repro_torch.launch.train",
-                 "repro_torch.models.model"}} <= set(names)
+                 "repro_torch.models.model", "repro_torch.models.ssm",
+                 "repro_torch.models.rglru",
+                 "repro_torch.models.encdec"}} <= set(names)
         for n in names:
             importlib.import_module(n)
         spec = importlib.util.spec_from_file_location(

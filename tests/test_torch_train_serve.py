@@ -3,7 +3,9 @@ against the JAX package, on the CPU.
 
 * `save_checkpoint` writes the reference's files byte for byte for the
   same tree (fp32, int32 and bf16 leaves, nested, and a model's
-  parameters through `params_to_numpy`), manifest included; the
+  parameters through `params_to_numpy`, in every family: the ssm's fp32
+  leaves beside bf16 ones, the hybrid's group-stacked and remainder
+  blocks, the encdec's two stacks), manifest included; the
   reference's `restore_checkpoint` reads the port's checkpoint, the
   port's reads the reference's; `params_to_numpy` -> `save_checkpoint`
   -> `load_checkpoint` gives back every parameter bit for bit, frozen.
@@ -90,7 +92,11 @@ def test_save_checkpoint_bytes_match_reference(tmp_path):
 
 @pytest.mark.parametrize("arch,dtype", [("smollm-135m", "bfloat16"),
                                         ("deepseek-moe-16b", "float32"),
-                                        ("qwen3-14b", "bfloat16")])
+                                        ("qwen3-14b", "bfloat16"),
+                                        ("mamba2-130m", "bfloat16"),
+                                        ("recurrentgemma-9b", "bfloat16"),
+                                        ("seamless-m4t-large-v2",
+                                         "float32")])
 def test_model_checkpoint_matches_reference_and_round_trips(
         tmp_path, arch, dtype):
     """A model's parameters: the port's checkpoint of params_to_numpy is
