@@ -144,7 +144,29 @@ without printing a result:
             against dp=2 on one rank: tokens; per rank the wall per
             step, the collectives per step and their time (a spy on the
             group's collectives, the card synchronized around each), the
-            FFN rows held, the weights and the serve's peak memory;
+            FFN rows held, the embedding's and head's vocab share (split
+            over the ranks), the weights and the serve's peak memory;
+   tptrain — training over ranks and grok-1-314b's experts split by
+            neurons, on four gloo ranks sharing the card (as phase tp):
+            one fp32 train step of smollm-135m at full width (2 layers)
+            at dp=2 x tp=2 against one rank from the same seeded weights
+            (each rank drawing them leaf by leaf) and batch (loss within
+            1e-5 relative, every gathered gradient leaf within 1e-4 of
+            its max |g|); 10 steps of launch.train's recipe at full
+            width (16 layers, bf16, remat) at dp=2 x tp=2 against one
+            rank (each loss within 2e-2 relative, finite, the last below
+            the first; per rank the wall and collectives per step, the
+            weights, the vocab share, peak memory), then gather_params,
+            save_checkpoint and load_checkpoint bit for bit;
+            grok-1-314b at full width (D 6144, 8 experts of d_ff 32,768,
+            vocab 131,072), its depth cut to 1 layer in fp32 and 2 in
+            bf16, at tp=4 against tp=1 on rank 0: phase 4's stream
+            eagerly (fp32: tokens, traces and TokenStats identical, the
+            tp=1 trace repriced at 4 shards; bf16: agreement counted),
+            every layer's apply_moe_ffn on the x of the first steps held
+            against tp=1 on the same x (counts identical), no
+            fused_cold_ffn launch; per rank the weights, host RSS and card
+            peaks, wall and collectives per step;
    train  — the training path: one fp32 train step (LM loss, autograd,
             AdamW) of reduced smollm-135m, deepseek-moe-16b and
             qwen2-vl-2b on the card against the same step on the CPU
@@ -202,9 +224,11 @@ import dataclasses
 import gc
 import itertools
 import json
+import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -238,7 +262,7 @@ from repro_torch.optim.adamw import AdamW  # noqa: E402
 from repro_torch.train.steps import (  # noqa: E402
     loss_and_grads, make_loss_fn, make_train_step)
 from repro_torch.bridge import (  # noqa: E402
-    load_checkpoint, params_from_numpy, params_to_numpy)
+    gather_params, load_checkpoint, params_from_numpy, params_to_numpy)
 from repro_torch.checkpoint.ckpt import save_checkpoint  # noqa: E402
 from repro_torch.models.modules import activation_fn  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
@@ -2394,9 +2418,16 @@ def spy_collectives():
             TP_COLL["calls"] += 1
             return out
         return run
-    for name in ("all_reduce_f32", "all_gather_ids", "broadcast",
-                 "broadcast_object"):
+    for name in ("all_reduce_f32", "all_gather_ids", "all_gather_cols",
+                 "gather_objects", "broadcast", "broadcast_object"):
         setattr(ShardGroup, name, timed(getattr(ShardGroup, name)))
+
+
+def vocab_bytes(model) -> int:
+    """Bytes of the embedding and the untied head a model holds."""
+    return sum(t.numel() * t.element_size() for t in (model.embed,
+                                                        model.lm_head)
+               if t is not None)
 
 
 def tp_plan(cfg, groups=4):
@@ -2582,7 +2613,8 @@ def tp_dense(world, groups, arch, layers, dtype, sizes, kernel=False):
         engine.close()
         rows = local.layers[0].ffn.rows
         run.update(policy=engine.graph_policy, kv_heads=local.kv_heads,
-                   ffn_rows=cfg.d_ff if rows is None else len(rows.ids))
+                   ffn_rows=cfg.d_ff if rows is None else len(rows.ids),
+                   vocab_bytes=vocab_bytes(local))
         if run["launches"] != cfg.num_layers * run["steps"]:
             raise AssertionError(f"{cfg.name} tp={n} rank {grp.rank}: "
                                  f"{run['launches']} fused_cold_ffn "
@@ -2799,7 +2831,8 @@ def tp_hold_dense(key, runs):
                   f"of {r['steps']}), collectives {r['coll_per_step']:.1f} "
                   f"per step taking {r['coll_ms_per_step']:.2f} ms, "
                   f"fused_cold_ffn {r['launches'] // r['steps']} per step, "
-                  f"weights {r['weight_bytes'] / 2**20:.1f} MiB + serve "
+                  f"weights {r['weight_bytes'] / 2**20:.1f} MiB (embedding "
+                  f"and head {r['vocab_bytes'] / 2**20:.1f} MiB) + serve "
                   f"peak {r['peak_bytes'] / 2**20:.1f} MiB")
             for B, t in r.get("kernel", {}).items():
                 print(f"      rank {i} layer 0 B={B:2d} (g_loc {t['g_loc']}): "
@@ -2818,6 +2851,7 @@ def tp_hold_dense(key, runs):
             coll_per_step=[r["coll_per_step"] for r in per],
             coll_ms_per_step=[r["coll_ms_per_step"] for r in per],
             weight_mib=[r["weight_bytes"] / 2**20 for r in per],
+            vocab_mib=[r["vocab_bytes"] / 2**20 for r in per],
             peak_mib=[r["peak_bytes"] / 2**20 for r in per],
             kernel={i: r["kernel"] for i, r in enumerate(per)
                     if "kernel" in r})
@@ -2898,6 +2932,472 @@ def phase_tp(card):
     return out
 
 
+# ------------------------------------------------------- phase tptrain ----
+
+# training over a dp x tp grid and grok-1-314b's experts split by neurons,
+# on gloo ranks sharing the card (as phase tp)
+TPT_WORLD, TPT_DP, TPT_TP = 4, 2, 2
+# depths cut (never widths) to keep the phase within 150 s on a slow host
+TPT_PARITY_LAYERS = 2           # the fp32 step, the grid against one rank
+TPT_TRAIN_LAYERS = 16           # launch.train's recipe at full width
+TPT_STEPS = 10
+TPT_LOSS_REL = 2e-2             # each bf16 step's loss against one rank's
+# grok-1-314b at full width, depth cut to what four ranks sharing the card
+# hold: (key, layers, dtype)
+GROK = (("fp32", 1, "float32"), ("bf16", 2, "bfloat16"))
+GROK_SAME_X_STEPS = 3           # steps whose every layer's x is held
+
+
+def rss_bytes() -> int:
+    """This process's resident host memory now (/proc/self/statm)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class HostPeak:
+    """The peak of this process's resident host memory while the `with`
+    runs, sampled every 10 ms on a thread: the kernel under the card's
+    sandbox keeps no VmHWM, and ru_maxrss would carry the parent's
+    resident set from before the spawn's exec."""
+
+    def __enter__(self):
+        self.peak, self._stop = rss_bytes(), threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, rss_bytes())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_bytes())
+
+
+def on_card(module):
+    """Raise unless every parameter of `module` lives on the card."""
+    off = {p.device.type for p in module.parameters()} - {"cuda"}
+    if off:
+        raise AssertionError(f"a rank holds parameters on {off}, not the "
+                             f"card")
+
+
+def grad_error(want: dict, got: dict) -> float:
+    """The worst leaf's max |got - want| over its max |want|, over the
+    leaves of two gradient trees of one layout."""
+    worst = 0.0
+    for k, w in want.items():
+        if isinstance(w, dict):
+            worst = max(worst, grad_error(w, got[k]))
+            continue
+        if w.shape != got[k].shape:
+            raise AssertionError(f"gradient {k}: shape {got[k].shape}, "
+                                 f"one rank's {w.shape}")
+        worst = max(worst, float(np.abs(got[k] - w).max())
+                    / max(float(np.abs(w).max()), 1e-30))
+    return worst
+
+
+def same_tree(a, b) -> bool:
+    """Two numpy parameter trees (`params_to_numpy`'s) equal bit for
+    bit, dtypes included."""
+    if a.dtypes != b.dtypes:
+        return False
+
+    def walk(x, y):
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(walk(x[k], y[k]) for k in x)
+        return x.dtype == y.dtype and np.array_equal(x, y)
+    return walk(a.tree, b.tree)
+
+
+def tpt_parity(world, rows, cols):
+    """One fp32 train step's loss and gradients of smollm-135m at full
+    width cut to TPT_PARITY_LAYERS layers: the dp x tp grid against one
+    rank (world rank 0, the others waiting), the same seeded weights and
+    batch. Holds on rank 0; returns the loss, the errors, the seconds."""
+    cfg = tp_cfg(TRAIN_ARCH, TPT_PARITY_LAYERS, "float32")
+    batch = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_SEQ,
+                                       TRAIN_BATCH, seed=0)).batch()
+    out, t0 = {}, time.perf_counter()
+    if world.rank == 0:
+        one = build_model(cfg, "cuda", seed=0)
+        loss, grads = loss_and_grads(one, one.params(),
+                                     shard_batch(batch, "cuda"))
+        want = (float(loss), params_to_numpy(one.module, grads).tree)
+        del one, grads
+    out["one_s"] = time.perf_counter() - t0
+    torch.distributed.barrier(group=world.group)
+    t1 = time.perf_counter()
+    model = build_model(cfg, "cuda", seed=0, shard=rows)
+    on_card(model.module)
+    loss, grads = loss_and_grads(model, model.params(), shard_batch(
+        batch, "cuda", cols.rank, TPT_DP), cols)
+    out["step_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    tree = gather_params(model.module, rows, values=grads) \
+        if cols.rank == 0 else None
+    out["gather_s"] = time.perf_counter() - t1
+    out["loss"] = float(loss)
+    if world.rank == 0:
+        rel = abs(out["loss"] - want[0]) / abs(want[0])
+        worst = grad_error(want[1], tree.tree)
+        if rel > TRAIN_LOSS_REL or worst > TRAIN_GRAD_REL:
+            raise AssertionError(f"dp x tp train step: loss {out['loss']} "
+                                 f"against {want[0]} ({rel:.3e}), worst "
+                                 f"gradient {worst:.3e} of its max")
+        out.update(loss_one=want[0], loss_rel=rel, grad_worst_rel=worst)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def tpt_run(cfg, shard=None, data=None):
+    """launch.train's loop (`run`) at TRAIN_BATCH x TRAIN_SEQ, lr
+    TRAIN_LR, TPT_STEPS steps on the card, each step's synchronized wall
+    and collectives recorded by a spy on make_train_step; the kernel
+    launches of the steps and the peak device memory."""
+    import repro_torch.launch.train as ltrain
+    inner, walls, colls = ltrain.make_train_step, [], []
+
+    def timed_step(model, opt, **kw):
+        step = inner(model, opt, **kw)
+
+        def go(*a):
+            c0, s0 = TP_COLL["calls"], TP_COLL["seconds"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = step(*a)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            colls.append((TP_COLL["calls"] - c0, TP_COLL["seconds"] - s0))
+            return res
+        return go
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    ops.set_launch_counts({k: 0 for k in ops.launch_counts()})
+    ltrain.make_train_step = timed_step
+    try:
+        model, losses = ltrain.run(cfg, torch.device("cuda"),
+                                   steps=TPT_STEPS, batch_size=TRAIN_BATCH,
+                                   seq_len=TRAIN_SEQ, lr=TRAIN_LR,
+                                   log_every=0, seed=0, shard=shard,
+                                   data=data)
+    finally:
+        ltrain.make_train_step = inner
+    on_card(model.module)
+    c, secs = np.array(colls, dtype=float).T
+    return model, dict(
+        losses=losses, wall_ms=float(np.median(walls[1:]) * 1e3),
+        first_ms=walls[0] * 1e3, coll_per_step=float(np.median(c[1:])),
+        coll_ms_per_step=float(np.median(secs[1:]) * 1e3),
+        launches=sum(ops.launch_counts().values()),
+        weight_bytes=sum(p.numel() * p.element_size()
+                         for p in model.module.parameters()),
+        vocab_bytes=vocab_bytes(model.module),
+        peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def tpt_train(world, rows, cols):
+    """smollm-135m at full width (TPT_TRAIN_LAYERS layers, bf16, remat):
+    TPT_STEPS steps on one rank (world rank 0, the others waiting), then
+    on the dp x tp grid from the same seeded weights and batches; the
+    trained slices gathered, saved and loaded back on rank 0 bit for
+    bit."""
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=TPT_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    one = None
+    if world.rank == 0:
+        model, one = tpt_run(cfg)
+        del model
+    torch.distributed.barrier(group=world.group)
+    model, out = tpt_run(cfg, rows, cols)
+    out["seconds_steps"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    tree = gather_params(model.module, rows) if cols.rank == 0 else None
+    out["gather_s"] = time.perf_counter() - t1
+    if out["launches"]:
+        raise AssertionError(f"rank {world.rank}: the train steps launched "
+                             f"{out['launches']} kernels")
+    if world.rank == 0:
+        import tempfile
+        losses, base = np.array(out["losses"]), np.array(one["losses"])
+        rel = np.abs(losses - base) / np.abs(base)
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+                and (rel <= TPT_LOSS_REL).all()):
+            raise AssertionError(f"dp x tp losses {losses} against one "
+                                 f"rank's {base}")
+        with tempfile.TemporaryDirectory() as d:
+            t1 = time.perf_counter()
+            save_checkpoint(d, tree, step=TPT_STEPS)
+            back = params_to_numpy(load_checkpoint(d, cfg, "cuda"))
+            out["checkpoint_s"] = time.perf_counter() - t1
+        if not same_tree(tree, back):
+            raise AssertionError("the gathered checkpoint did not load back "
+                                 "bit for bit")
+        out.update(one=one, loss_rel=rel.tolist())
+    del model, tree
+    free_cuda()
+    return out
+
+
+def tpt_grok_engine(cfg, model, plan, shard):
+    """An eager engine for phase 4's stream over `shard` (None: one
+    rank)."""
+    return ServeEngine(cfg, model, plan, temperature=0.0, seed=0,
+                       ctx_budget=CTX, cuda_graphs=False, shard=shard)
+
+
+def tpt_grok_serve(cfg, engine, record):
+    """Phase 4's stream through `engine` (tp_serve), with every layer's
+    apply_moe_ffn input of the first GROK_SAME_X_STEPS steps recorded
+    when `record`; the engine is closed after."""
+    from repro_torch.models import moe as tmoe
+    xs, inner, steps = [], tmoe.apply_moe_ffn, [0]
+    step = engine.step
+
+    def counted():
+        out = step()
+        steps[0] += 1
+        return out
+
+    def spy(moe, x, cfg_, plan=None, active_mask=None, **k):
+        if record and steps[0] < GROK_SAME_X_STEPS:
+            xs.append((len(xs) % cfg.num_layers, x.detach().clone(),
+                       None if active_mask is None else active_mask.clone()))
+        return inner(moe, x, cfg_, plan=plan, active_mask=active_mask, **k)
+    tmoe.apply_moe_ffn, engine.step = spy, counted
+    try:
+        run = tp_serve(engine)
+    finally:
+        tmoe.apply_moe_ffn = inner
+    engine.close()
+    run.update(xs=xs, card_peak=torch.cuda.max_memory_allocated())
+    run["traces"] = [c[0] for c in run["calls"]]
+    run["stats"] = [dataclasses.asdict(x) for x in run["stats"]]
+    return run
+
+
+def tpt_grok(world, four, layers, dtype):
+    """grok-1-314b at full width cut to `layers`: every rank builds its
+    tp=4 slice, rank 0 serves tp=1 (the others waiting), then tp=4
+    serves (each engine's storage plane holds a host fp32 copy of the
+    experts it is given, so rank 0 frees its tp=1 plane first); every
+    recorded (step, layer)'s
+    apply_moe_ffn on the same x held against tp=1 (max |dy| within the
+    dtype's tolerance of max |y|, counts identical); tokens, traces and
+    stats returned for the parent to hold."""
+    from repro_torch.models import moe as tmoe
+    from repro_torch.parallel import shard_layout
+    cfg = tp_cfg("grok-1-314b", layers, dtype)
+    plan = serving_family(cfg).build_plan(cfg, hw=PHONE)
+    t0 = time.perf_counter()
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    local = tmoe.make_model(cfg, "cuda", seed=0, layout=shard_layout(
+        cfg, plan, four.rank, TPT_WORLD))
+    on_card(local)
+    whole, one = None, None
+    if world.rank == 0:
+        with HostPeak() as peak:
+            whole = tmoe.make_model(cfg, "cuda", seed=0)
+            one = tpt_grok_serve(cfg, tpt_grok_engine(cfg, whole, plan,
+                                                      None), False)
+        one["host_peak"] = peak.peak
+        if dtype == "float32":
+            # the tp=1 trace repriced at 4 shards (the plane prices from
+            # the config, the plan and the trace; its bundles come from
+            # this rank's slice, which the pricing never reads)
+            plane = StoragePlane(cfg, local, plan, spec=POWERINFER2,
+                                 n_shards=TPT_WORLD)
+            one["repriced"] = [dataclasses.asdict(plane.step(tr, p, b, c))
+                               for tr, p, b, c in one["calls"]]
+            plane.close()
+        for k in ("calls", "xs"):
+            one.pop(k)
+        gc.collect()             # the tp=1 plane's host copy goes first
+    torch.distributed.barrier(group=world.group)
+    t1 = time.perf_counter()
+    with HostPeak() as peak:
+        run = tpt_grok_serve(cfg, tpt_grok_engine(cfg, local, plan, four),
+                             True)
+    run.pop("calls")
+    run["host_peak"] = peak.peak
+    run["serve_s"] = time.perf_counter() - t1
+    # the same x through apply_moe_ffn over the ranks and on rank 0 whole
+    worst, held = 0.0, 0
+    for l, x, mask in run.pop("xs"):
+        y, _, tr = tmoe.apply_moe_ffn(local.layers[l].moe, x, cfg,
+                                      active_mask=mask, collect_trace=True,
+                                      shard=four)
+        if whole is not None:
+            y1, _, tr1 = tmoe.apply_moe_ffn(whole.layers[l].moe, x, cfg,
+                                            active_mask=mask,
+                                            collect_trace=True)
+            # the ranks' partial outputs are each rounded to the dtype
+            # before their fp32 sum: held at the tolerance of max |y|
+            d = float((y.float() - y1.float()).abs().max())
+            scale = float(y1.float().abs().max())
+            if not torch.equal(tr, tr1) or d > TOL[y.dtype] * scale:
+                raise AssertionError(f"grok {dtype} layer {l}: tp=4 "
+                                     f"apply_moe_ffn differs from tp=1 on the "
+                                     f"same x (max |dy| {d} of max |y| "
+                                     f"{scale})")
+            worst = max(worst, d / max(scale, 1e-30))
+            held += 1
+    run.update(one=one, same_x=held, same_x_err=worst,
+               experts=tuple(local.layers[0].moe.experts.shape),
+               vocab_bytes=vocab_bytes(local),
+               seconds=time.perf_counter() - t0)
+    del whole, local
+    free_cuda()
+    return run
+
+
+def tpt_rank(world):
+    """Every case of phase tptrain on this rank of the gloo world (all
+    ranks on cuda:0); its results for the parent to hold and print."""
+    from repro_torch.parallel import grid, replica_groups
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spy_collectives()
+    t0 = time.perf_counter()
+    # every rank opens its CUDA context and cuBLAS handle now, while rank
+    # 0 runs the one-rank cases alone
+    a = torch.ones((8, 8), device=world.device)
+    float((a @ a).sum())
+    rows, cols = grid(world, TPT_DP, TPT_TP)
+    four = replica_groups(world, 1, TPT_WORLD)[0]
+    out = {"parity": tpt_parity(world, rows, cols),
+           "train": tpt_train(world, rows, cols)}
+    for key, layers, dtype in GROK:
+        torch.distributed.barrier(group=world.group)
+        out[key] = tpt_grok(world, four, layers, dtype)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_tptrain(card):
+    """Training over a dp x tp grid and grok-1-314b at tp=4 on gloo ranks
+    sharing the card; the ranks hold what they can alone (the step and
+    the same-x holds on rank 0) and this process holds the grok streams
+    against tp=1. A failing rank fails the phase."""
+    from repro_torch.parallel import spawn
+    print(f"== phase tptrain: {TPT_WORLD} gloo ranks sharing the card "
+          f"(dp={TPT_DP} x tp={TPT_TP} training; grok-1-314b at "
+          f"tp={TPT_WORLD}; {card})")
+    free_cuda()
+    free, total = torch.cuda.mem_get_info()
+    print(f"  the card has {free / 2**30:.2f} of {total / 2**30:.2f} GiB "
+          f"free; this process keeps {torch.cuda.memory_reserved() / 2**30:.2f}"
+          f" GiB reserved")
+    t0 = time.perf_counter()
+    ranks = spawn(tpt_rank, TPT_WORLD, device="cuda", threads=2,
+                  timeout=900)
+    print(f"  ranks ran {time.perf_counter() - t0:.1f} s (rank 0 from its "
+          f"start: {ranks[0]['seconds']:.1f} s)")
+    p = ranks[0]["parity"]
+    print(f"  {TRAIN_ARCH} fp32 ({TPT_PARITY_LAYERS} layers, full width) "
+          f"one step at dp={TPT_DP} x tp={TPT_TP} against one rank: loss "
+          f"{p['loss']:.7f} / {p['loss_one']:.7f} ({p['loss_rel']:.2e} "
+          f"relative), worst gathered gradient {p['grad_worst_rel']:.2e} of "
+          f"its max |g| ({p['seconds']:.1f} s: one rank "
+          f"{p['one_s']:.1f}, the grid's build and step {p['step_s']:.1f}, "
+          f"the gather {p['gather_s']:.1f})")
+    tr = [r["train"] for r in ranks]
+    one = tr[0]["one"]
+    print(f"  {TRAIN_ARCH} bf16 ({TPT_TRAIN_LAYERS} layers, remat) {TPT_STEPS} steps of "
+          f"({TRAIN_BATCH}, {TRAIN_SEQ}), lr {TRAIN_LR}: losses "
+          + ", ".join(f"{v:.4f}" for v in tr[0]["losses"])
+          + f"; one rank " + ", ".join(f"{v:.4f}" for v in one["losses"])
+          + f" (worst {max(tr[0]['loss_rel']):.2e} relative); "
+          f"checkpoint of the gathered model {tr[0]['checkpoint_s']:.2f} s, "
+          f"bit for bit; 0 kernel launches")
+    print(f"    one rank: wall {one['wall_ms']:.2f} ms/step (first "
+          f"{one['first_ms']:.2f}), weights {one['weight_bytes'] / 2**20:.1f} "
+          f"MiB (embedding {one['vocab_bytes'] / 2**20:.1f}), peak "
+          f"{one['peak_bytes'] / 2**20:.1f} MiB")
+    for i, r in enumerate(tr):
+        print(f"    rank {i}: wall {r['wall_ms']:.2f} ms/step (first "
+              f"{r['first_ms']:.2f}), collectives {r['coll_per_step']:.0f} "
+              f"per step taking {r['coll_ms_per_step']:.2f} ms, weights "
+              f"{r['weight_bytes'] / 2**20:.1f} MiB (embedding "
+              f"{r['vocab_bytes'] / 2**20:.1f}), peak "
+              f"{r['peak_bytes'] / 2**20:.1f} MiB"
+              + (f", gather {r['gather_s']:.2f} s" if i < TPT_TP else ""))
+    out = {"parity": p, "train": dict(
+        losses=tr[0]["losses"], one_losses=one["losses"],
+        loss_rel=tr[0]["loss_rel"], one_wall_ms=one["wall_ms"],
+        wall_ms=[r["wall_ms"] for r in tr],
+        coll_per_step=[r["coll_per_step"] for r in tr],
+        coll_ms_per_step=[r["coll_ms_per_step"] for r in tr],
+        weight_mib=[r["weight_bytes"] / 2**20 for r in tr],
+        vocab_mib=[r["vocab_bytes"] / 2**20 for r in tr],
+        peak_mib=[r["peak_bytes"] / 2**20 for r in tr],
+        one_weight_mib=one["weight_bytes"] / 2**20,
+        one_vocab_mib=one["vocab_bytes"] / 2**20,
+        launches=sum(r["launches"] for r in tr))}
+    for key, layers, dtype in GROK:
+        runs = [r[key] for r in ranks]
+        base = runs[0]["one"]
+        for i, r in enumerate(runs):
+            if r["launches"] or base["launches"]:
+                raise AssertionError(f"grok {key}: fused_cold_ffn launched "
+                                     f"on the moe path")
+            if r["toks"] != runs[0]["toks"] or any(
+                    not np.array_equal(a, b)
+                    for a, b in zip(r["traces"], runs[0]["traces"])):
+                raise AssertionError(f"grok {key} rank {i}: other tokens or "
+                                     f"traces than rank 0")
+        r0 = runs[0]
+        same_toks = r0["toks"] == base["toks"]
+        same_tr = sum(np.array_equal(a, b)
+                      for a, b in zip(r0["traces"], base["traces"]))
+        if dtype == "float32":
+            if not same_toks or same_tr != len(base["traces"]) \
+                    or len(r0["traces"]) != len(base["traces"]) \
+                    or r0["stats"] != base["repriced"]:
+                raise AssertionError(f"grok {key}: tokens, traces or "
+                                     f"TokenStats differ from tp=1's")
+            verdict = ("tokens, traces and TokenStats identical to tp=1 "
+                       "(its trace repriced at 4 shards)")
+        else:
+            verdict = (f"tokens {'identical to' if same_toks else 'differ from'}"
+                       f" tp=1's, traces identical at {same_tr} of "
+                       f"{len(base['traces'])} steps (x drifts in bf16)")
+        E, f_loc, R, D = r0["experts"]
+        print(f"  grok-1-314b {key} ({layers} layer(s), D {D}, {E} experts "
+              f"of {f_loc} of {f_loc * TPT_WORLD} rows per rank), phase 4's "
+              f"stream, eager, tp={TPT_WORLD}: {verdict}; apply_moe_ffn on "
+              f"the same x at {r0['same_x']} (step, layer): counts "
+              f"identical, max |dy| {r0['same_x_err']:.3e} of max |y|; no "
+              f"fused_cold_ffn launch ({r0['seconds']:.1f} s)")
+        for name, r in [("tp=1", base)] + [(f"rank {i}", r)
+                                           for i, r in enumerate(runs)]:
+            print(f"    {name}: wall {r['wall_ms']:.2f} ms/step (median of "
+                  f"{r['steps']}), collectives {r['coll_per_step']:.0f} per "
+                  f"step taking {r['coll_ms_per_step']:.2f} ms, weights "
+                  f"{r['weight_bytes'] / 2**30:.3f} GiB, card peak "
+                  f"{r['card_peak'] / 2**30:.2f} GiB, host RSS peak of "
+                  f"the serve {r['host_peak'] / 2**30:.2f} GiB")
+        out[key] = dict(
+            layers=layers, tokens_identical=same_toks,
+            traces_identical=[same_tr, len(base["traces"])],
+            same_x=r0["same_x"], same_x_err=r0["same_x_err"],
+            launches=r0["launches"], one_wall_ms=base["wall_ms"],
+            wall_ms=[r["wall_ms"] for r in runs],
+            coll_per_step=[r["coll_per_step"] for r in runs],
+            coll_ms_per_step=[r["coll_ms_per_step"] for r in runs],
+            weight_gib=[r["weight_bytes"] / 2**30 for r in runs],
+            one_weight_gib=base["weight_bytes"] / 2**30,
+            card_peak_gib=[r["card_peak"] / 2**30 for r in runs],
+            host_peak_gib=[r["host_peak"] / 2**30 for r in runs],
+            seconds=r0["seconds"])
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase tptrain {out['seconds']:.1f} s")
+    return out
+
+
 # --------------------------------------------------------- phase train ----
 
 # card against CPU: reduced configs in fp32, one train step from the same
@@ -2969,8 +3469,8 @@ def train_full(cfg):
     import repro_torch.launch.train as ltrain
     inner, walls = ltrain.make_train_step, []
 
-    def timed_step(model, opt):
-        step = inner(model, opt)
+    def timed_step(model, opt, **kw):
+        step = inner(model, opt, **kw)
 
         def run(*a):
             torch.cuda.synchronize()
@@ -3494,7 +3994,7 @@ def phase_families(card):
 
 
 PHASES = ("kernel", "quant", "times", "gather", "serve", "parity", "api",
-          "fleet", "archs", "vlm", "moe", "plan", "tp",
+          "fleet", "archs", "vlm", "moe", "plan", "tp", "tptrain",
           "train", "families")
 
 
@@ -3558,6 +4058,7 @@ def main(argv=None):
     moe_out = timed("moe", phase_moe)
     plan_out = timed("plan", phase_plan, card)
     tp_out = timed("tp", phase_tp, card)
+    tpt_out = timed("tptrain", phase_tptrain, card)
     train_out = timed("train", phase_train, card)
     fam_out = timed("families", phase_families, card)
     if run != set(PHASES):
@@ -3622,6 +4123,10 @@ def main(argv=None):
                for n, r in v.items()},
             "train steps (phase train)":
                 train_out["launches_train_step"]["fused_cold_ffn"],
+            "dp=2 x tp=2 train steps, per rank (phase tptrain)":
+                tpt_out["train"]["launches"],
+            **{f"grok-1-314b {k} stream, tp=4, per rank (phase tptrain)":
+               tpt_out[k]["launches"] for k, *_ in GROK},
             **{f"trained {train_out['arch']} stream, {m} (phase train)":
                r["launches"] for m, r in train_out["serve"].items()},
             **{f"{a} decode, {FAMILY_STEPS} steps at B "
@@ -3638,7 +4143,7 @@ def main(argv=None):
                                        for b, t in v["kernels"].items()}}
                       for a, v in fam_out["serve"].items()},
         "fleet": fleet, "moe": moe_out, "plan": plan_out, "tp": tp_out,
-        "train": train_out, "families": fam_out}, {
+        "tptrain": tpt_out, "train": train_out, "families": fam_out}, {
         "name": "fused_cold_ffn (quant mode)", "route": "cuda",
         "source": src + "fused_cold_ffn.cu",
         "replaces": "src/repro/kernels/cluster_gather_ffn.py:148",

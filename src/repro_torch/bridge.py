@@ -23,15 +23,20 @@ numpy holds them as ml_dtypes' extension type, or, read back from a
 leaf's declared dtype (`dtypes`, from a checkpoint's manifest) wins over
 the array's own.
 
-Over a group of ranks, `shard_params` cuts the tree to one rank's slices
-(the counterpart of the reference engine's `_shard_params` and
-`_QUANT_FFN_SPECS`), and `params_from_numpy(..., shard=, plan=)` builds
-that rank's model from them; `shard_model` does the same from a whole
-port model.
+Over a group of ranks, `placements` says which slice of each leaf a
+rank holds (`parallel.shard_layout`: heads, vocab rows and columns, FFN
+rows, experts or each expert's rows), `shard_params` cuts the tree to
+one rank's slices (the counterpart of the reference's param specs and of
+its engine's `_shard_params` and `_QUANT_FFN_SPECS`), and
+`params_from_numpy(..., shard=, plan=)` builds that rank's model from
+them (a serving layout for `plan`, the training layout without one);
+`shard_model` does the same from a whole port model.
 
 `params_to_numpy(model)` is the inverse of `params_from_numpy`: the
 reference-layout tree of a whole model, layer leaves stacked (L, ...),
-which `checkpoint.ckpt.save_checkpoint` writes as the reference does.
+which `checkpoint.ckpt.save_checkpoint` writes as the reference does;
+`gather_params(model, shard)` gives the same tree from the slices the
+ranks of a group hold.
 """
 from __future__ import annotations
 
@@ -44,7 +49,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, rglru
 from repro_torch.models.dense import DenseModel
 from repro_torch.models.moe import MoEModel
-from repro_torch.models.model import family
+from repro_torch.models.model import SHARDED_FAMILIES, family
 from repro_torch.models.modules import resolve_device
 from repro_torch.parallel import ShardLayout, shard_layout
 
@@ -85,54 +90,70 @@ def _load(param: torch.nn.Parameter, a, name: str, dtype: str = None):
     param.copy_(t.to(param.dtype))
 
 
-def _take(a, axis: int, idx):
-    """a's entries `idx` along per-layer axis `axis`: a is stacked (L,
-    ...) or a sequence of per-layer arrays or tensors."""
-    if isinstance(a, (list, tuple)):
-        return [_take(t, axis - 1, idx) for t in a]
-    if isinstance(a, torch.Tensor) and not isinstance(idx, slice):
-        idx = torch.from_numpy(idx).to(a.device)
-    return a[(slice(None),) * (axis + 1) + (idx,)]
+def _index(a, idx):
+    """a[idx] of a numpy array or tensor; numpy ids in idx index a tensor
+    on its device."""
+    if isinstance(a, torch.Tensor):
+        idx = tuple(torch.from_numpy(i).to(a.device)
+                    if isinstance(i, np.ndarray) else i for i in idx)
+    return a[idx]
+
+
+def placements(cfg: ModelConfig, layout: ShardLayout) -> dict:
+    """{leaf path: index} of the leaves `layout`'s rank holds a slice of:
+    its part of the whole leaf is whole[index]. Layer leaves' indices
+    leave out the stacked layer axis; the others stay whole."""
+    q0, nq, k0, nk = layout.heads
+    dh, A = cfg.d_head, slice(None)
+    vocab = slice(*layout.vocab)
+    out = {("embed",): (vocab,), ("lm_head",): (A, vocab)}
+    for k, (lo, n) in (("wq", (q0, nq)), ("wk", (k0, nk)),
+                       ("wv", (k0, nk))):
+        out["layers", "attn", k] = (A, slice(lo * dh, (lo + n) * dh))
+    out["layers", "attn", "wo"] = (slice(q0 * dh, (q0 + nq) * dh),)
+    if cfg.num_experts:
+        e0, ne = layout.experts
+        out["layers", "moe", "experts"] = (slice(e0, e0 + ne),
+                                           slice(*layout.expert_rows))
+        out["layers", "moe", "shared", "w"] = (slice(*layout.shared),)
+    else:
+        ids = layout.ffn.ids
+        for k in ("w", "wq", "wsc", "wout"):
+            out["layers", "ffn", k] = (ids,)
+        out["layers", "ffn", "pred", "B"] = (A, ids)
+    return out
 
 
 def _shard_tree(tree, cfg: ModelConfig, layout: ShardLayout):
     """The leaves of `tree` (the reference's layout, layer leaves stacked
-    or per layer) that `layout`'s rank holds; the rest stay whole."""
-    q0, nq, k0, nk = layout.heads
-    dh = cfg.d_head
-    layers = dict(tree["layers"])
-    attn = dict(layers["attn"])
-    for k, (lo, n) in (("wq", (q0, nq)), ("wk", (k0, nk)),
-                       ("wv", (k0, nk))):
-        attn[k] = _take(attn[k], 1, slice(lo * dh, (lo + n) * dh))
-    attn["wo"] = _take(attn["wo"], 0, slice(q0 * dh, (q0 + nq) * dh))
-    layers["attn"] = attn
-    if "moe" in layers:
-        moe = dict(layers["moe"])
-        e0, ne = layout.experts
-        moe["experts"] = _take(moe["experts"], 0, slice(e0, e0 + ne))
-        if "shared" in moe:
-            moe["shared"] = {"w": _take(moe["shared"]["w"], 0,
-                                        slice(*layout.shared))}
-        layers["moe"] = moe
-    else:
-        ids = layout.ffn.ids
-        ffn = {k: _take(v, 0, ids) for k, v in layers["ffn"].items()
-               if k in ("w", "wq", "wsc", "wout")}
-        if "pred" in layers["ffn"]:
-            pred = layers["ffn"]["pred"]
-            ffn["pred"] = {"A": pred["A"], "B": _take(pred["B"], 1, ids)}
-        layers["ffn"] = ffn
-    return dict(tree, layers=layers)
+    (L, ...) or per-layer sequences) that `layout`'s rank holds; the rest
+    stay whole."""
+    places = placements(cfg, layout)
+
+    def cut(node, keys):
+        if isinstance(node, dict):
+            return {k: cut(v, keys + (k,)) for k, v in node.items()}
+        idx = places.get(keys)
+        if idx is None:
+            return node
+        if keys[0] != "layers":
+            return _index(node, idx)
+        if isinstance(node, (list, tuple)):
+            return [_index(t, idx) for t in node]
+        return _index(node, (slice(None),) + idx)
+    return cut(tree, ())
 
 
 def shard_params(tree, cfg: ModelConfig, plan, rank: int, n: int):
     """The slices of `tree` that rank `rank` of `n` holds
     (`parallel.shard_layout`): heads when both head counts divide n, the
-    FFN rows (`w`, the predictor's B columns and the quantized
-    containers wq / wsc / wout) every bucket of `plan` computes on the
-    rank, whole experts and shared rows for moe. Layer leaves may be
-    stacked (L, ...) arrays or per-layer sequences."""
+    embedding's vocab rows and the head's vocab columns when n divides
+    the padded vocabulary, the FFN rows (`w`, the predictor's B columns
+    and the quantized containers wq / wsc / wout) every bucket of `plan`
+    computes on the rank (its n-th of them when `plan` is None, for
+    training), whole experts (ep) or every expert's rows (tp) and shared
+    rows for moe. Layer leaves may be stacked (L, ...) arrays or
+    per-layer sequences."""
     return _shard_tree(tree, cfg, shard_layout(cfg, plan, rank, n))
 
 
@@ -144,16 +165,13 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None,
     and the stored cold bundles wq / wsc / wout where the tree has them.
     `dtypes` (the same nesting) declares leaves' dtypes. With `shard`, a
     ShardGroup of n > 1 ranks, a dense, vlm or moe model holds only its
-    rank's slices for serving `plan` (an ExecutionPlan; moe needs
-    none)."""
+    rank's slices for serving `plan` (an ExecutionPlan), or for training
+    when `plan` is None."""
     kw = {}
     if shard is not None and shard.size > 1:
-        if cfg.family not in ("dense", "vlm", "moe"):
+        if cfg.family not in SHARDED_FAMILIES:
             raise ValueError(f"{cfg.name}: the {cfg.family} family has no "
                              f"tensor-parallel layout")
-        if plan is None and not cfg.num_experts:
-            raise ValueError("a dense model's slice follows the plan's "
-                             "buckets: pass plan=")
         kw["layout"] = shard_layout(cfg, plan, shard.rank, shard.size)
         tree = _shard_tree(tree, cfg, kw["layout"])
     model = family(cfg)[0](cfg, resolve_device(device), seed=None, **kw)
@@ -331,6 +349,60 @@ def params_to_numpy(model: DenseModel, values: dict = None) -> Tree:
         return _numpy(pick(node))
 
     return Tree(*convert(model_tree(model)))
+
+
+def _paths(tree, keys=()):
+    """(key path, leaf) of a nested dict, depth first in its order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, keys + (k,))
+        else:
+            yield keys + (k,), v
+
+
+def gather_params(model: DenseModel, shard, plan=None,
+                  values: dict = None) -> Tree:
+    """The whole reference-layout numpy tree of a model whose slices the
+    ranks of `shard` hold (each built with `shard_layout(cfg, plan,
+    rank, n)`), as `params_to_numpy` gives it for a whole model on one
+    rank: each rank's leaves are gathered to the group's rank 0 and put
+    in place there, so `save_checkpoint` writes the files one rank
+    would. With `values` (tensors by parameter name, as in
+    `params_to_numpy`) the whole tree of those instead. Every rank of
+    the group calls it; rank 0 gets the tree, the others None (only
+    rank 0 ever holds the whole model)."""
+    local = params_to_numpy(model, values)
+    if shard is None or shard.size == 1:
+        return local
+    cfg = model.cfg
+    trees = shard.gather_objects(local.tree)
+    if trees is None:
+        return None
+    whole = family(cfg)[0](cfg, torch.device("meta"), seed=None)
+    shapes = {}
+    for keys, leaf in _paths(model_tree(whole)):
+        shapes[keys] = ((len(leaf),) + tuple(leaf[0].shape)
+                        if isinstance(leaf, list) else tuple(leaf.shape))
+    out = {}
+    for r, tree in enumerate(trees):
+        places = placements(cfg, shard_layout(cfg, plan, r, shard.size))
+        for keys, a in _paths(tree):
+            idx = places.get(keys)
+            if idx is None:
+                out.setdefault(keys, a)
+                continue
+            if keys not in out:
+                out[keys] = np.zeros(shapes[keys], a.dtype)
+            if keys[0] == "layers":
+                idx = (slice(None),) + idx
+            out[keys][idx] = a
+    nested = {}
+    for keys, a in out.items():
+        node = nested
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = a
+    return Tree(nested, local.dtypes)
 
 
 def shard_model(model: DenseModel, plan, shard, device=None) -> DenseModel:

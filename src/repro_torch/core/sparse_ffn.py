@@ -48,18 +48,24 @@ def ffn_dense(w, x, activation: str, shard=None, rows=None):
 
     Over a ShardGroup (`repro_torch.parallel`; default one rank) each
     rank runs its slice of the neurons (`rows.dense`, or its n-th of w's
-    rows when w holds them all) and one fp32 all-reduce sums the slices;
-    a group of one runs all of w and makes no collective."""
+    rows when w holds them all): x enters through `copy_in` and one fp32
+    all-reduce (`reduce_out`) sums the slices, so the backward is right
+    over ranks too; a group of one runs all of w and makes no
+    collective."""
     shard = shard or LOCAL
     if rows is None:
         N, s, n = w.shape[0], shard.rank, shard.size
         parts = [slice(s * N // n, (s + 1) * N // n)]
     else:
         parts = [rows.local(lo, hi) for lo, hi in rows.dense]
-    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    xs = shard.copy_in(x)
+    y = None
     for sl in parts:
-        y += _apply_bundle(w[sl], x, activation).float()
-    return shard.all_reduce_f32(y).to(x.dtype)
+        part = _apply_bundle(w[sl], xs, activation).float()
+        y = part if y is None else y + part
+    if y is None:
+        y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    return shard.reduce_out(y).to(x.dtype)
 
 
 def _top_k_ids(cscore: torch.Tensor, kc: int) -> torch.Tensor:
@@ -180,8 +186,9 @@ def ffn_hybrid(w, pred, x, activation: str, mode: str, plan: HybridPlan,
     slice and, when the plan's groups divide n > 1, its G/n whole cold
     groups (the fused kernel over them under 'pallas'), its ids gathered
     in rank order to (G, kc); otherwise every rank runs the whole cold
-    path and rank 0's output enters the sum. One fp32 all-reduce joins
-    the partial outputs. `rows` (a NeuronRows) maps the
+    path and rank 0's output enters the sum. One fp32 all-reduce
+    (`reduce_out`, after x entered through `copy_in`) joins the partial
+    outputs. `rows` (a NeuronRows) maps the
     global neuron ids to the rows w, B and the quantized containers hold
     on this rank; None when they hold all N.
     """
@@ -190,6 +197,7 @@ def ffn_hybrid(w, pred, x, activation: str, mode: str, plan: HybridPlan,
     N = w.shape[0] if rows is None else rows.n_neurons
     local = (lambda lo, hi: slice(lo, hi)) if rows is None else rows.local
     n_hot, G = plan.n_hot, plan.groups
+    x = shard.copy_in(x)
     y = torch.zeros((x.shape[0], w.shape[2]), dtype=torch.float32,
                     device=x.device)
     lo, hi = hot_range(n_hot, s, n)
@@ -212,7 +220,7 @@ def ffn_hybrid(w, pred, x, activation: str, mode: str, plan: HybridPlan,
                                       active_mask, quant)
             if s == 0:
                 y += y_cold
-    y = shard.all_reduce_f32(y).to(x.dtype)
+    y = shard.reduce_out(y).to(x.dtype)
     if return_indices:
         return y, cidx       # (G, kc) selected cold cluster ids per group
     return y

@@ -61,11 +61,19 @@ class SyntheticTokens:
             yield self.batch()
 
 
-def shard_batch(batch, device=None):
+def shard_batch(batch, device=None, replica: int = 0, dp: int = 1):
     """Host batch -> tensors on `device` (default `cuda`; raises on a
-    host without a card). One device, so no sharding yet: each numpy
-    array moves whole."""
+    host without a card). With dp > 1 data-parallel replicas, replica
+    `replica`'s rows [r*B/dp, (r+1)*B/dp) of every array (the reference's
+    P("data", None) placement); dp must divide the batch."""
     from repro_torch.models.modules import resolve_device
     device = resolve_device(device)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+    out = {}
+    for k, v in batch.items():
+        B = v.shape[0]
+        if B % dp:
+            raise ValueError(f"{k}: a batch of {B} rows does not split "
+                             f"over dp={dp} replicas")
+        rows = v[replica * B // dp:(replica + 1) * B // dp]
+        out[k] = torch.from_numpy(np.ascontiguousarray(rows)).to(device)
+    return out

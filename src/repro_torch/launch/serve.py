@@ -32,7 +32,9 @@ static-batch generate(), and `--fleet` excludes `--dp`:
 ranks, processes on this host that share `--device` and meet over gloo
 (`repro_torch.parallel.spawn`; `--dp` replicas then take N ranks each).
 Each rank builds the whole model on the host and keeps its slice on
-the device; rank 0 prints the report:
+the device (the embedding's and head's vocab share too; grok-1-314b,
+`moe_shard_mode="tp"`, splits every expert's rows); rank 0 prints the
+report:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --reduced --tp 2 --bon 2
@@ -297,7 +299,8 @@ def _serve(args, arch, shard=None) -> str:
     prompt = _prompts(cfg, args)
     mesh = f"dp={args.dp} " if args.dp > 1 else ""
     if args.tp > 1:
-        mesh += f"{'ep' if cfg.num_experts else 'tp'}={args.tp} " \
+        ep = cfg.num_experts and cfg.moe_shard_mode == "ep"
+        mesh += f"{'ep' if ep else 'tp'}={args.tp} " \
                 f"({engine.graph_policy}) "
     head = (f"arch={cfg.name} spec=powerinfer-2 storage={storage.name} "
             f"{mesh}device={engine.device} backend={args.backend} "

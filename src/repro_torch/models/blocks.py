@@ -13,8 +13,12 @@ Over a group of ranks (`repro_torch.parallel`) a module is built at its
 rank's slice (`ShardLayout`): attention holds its heads (`wq`/`wk`/`wv`
 by columns, `wo` by rows, `attn_spec`'s split) when both head counts
 divide the ranks, and all of them otherwise; the FFN holds its rows
-(`FFN.rows`). The functions below take the group as `shard` and add the
-one fp32 all-reduce each split needs.
+(`FFN.rows`). The functions below take the group as `shard`: a split
+region is entered through `shard.copy_in` and left through
+`shard.reduce_out`, the one fp32 all-reduce each split needs forward,
+and the one its input's gradient needs backward. A module built at a
+slice draws its random weights leaf by leaf at the whole shape, from the
+same generator stream as the whole model, and keeps its slice.
 """
 from __future__ import annotations
 
@@ -53,8 +57,11 @@ class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype, device, layout=None):
         super().__init__()
         h, dh, kv, d = cfg.num_heads, cfg.d_head, cfg.num_kv_heads, cfg.d_model
-        if layout is not None:
-            h, kv = layout.heads[1], layout.heads[3]
+        # (first q head, q heads, first kv head, kv heads) held
+        self.heads = (0, h, 0, kv) if layout is None else layout.heads
+        self.whole = (h, kv)
+        self.d_head = dh
+        h, kv = self.heads[1], self.heads[3]
         self.wq = _param((d, h * dh), dtype, device)
         self.wk = _param((d, kv * dh), dtype, device)
         self.wv = _param((d, kv * dh), dtype, device)
@@ -64,17 +71,37 @@ class Attention(nn.Module):
         self.q_norm = _param((dh,), dtype, device) if cfg.qk_norm else None
         self.k_norm = _param((dh,), dtype, device) if cfg.qk_norm else None
 
+    @property
+    def split(self) -> bool:
+        """True when this module holds a share of the heads."""
+        return self.heads[1] < self.whole[0]
+
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
-        for p in (self.wq, self.wk, self.wv, self.wo):
-            p.copy_(dense_init(tuple(p.shape), p.dtype, generator, p.device))
+        q0, nq, k0, nk = self.heads
+        dh, d = self.d_head, self.wq.shape[0]
+        H, KV = self.whole
+        for p, shape, sl in (
+                (self.wq, (d, H * dh), (slice(None), slice(q0 * dh,
+                                                           (q0 + nq) * dh))),
+                (self.wk, (d, KV * dh), (slice(None), slice(k0 * dh,
+                                                            (k0 + nk) * dh))),
+                (self.wv, (d, KV * dh), (slice(None), slice(k0 * dh,
+                                                            (k0 + nk) * dh))),
+                (self.wo, (H * dh, d), (slice(q0 * dh, (q0 + nq) * dh),))):
+            p.copy_(dense_init(shape, p.dtype, generator, p.device,
+                               index=sl))
 
 
-def _qkv(p: Attention, x, cfg: ModelConfig, angles):
-    """Project + rope. x (B,S,D) -> q (B,S,H,dh), k/v (B,S,KV,dh)."""
+def _qkv(p: Attention, x, cfg: ModelConfig, angles, shard=None):
+    """Project + rope. x (B,S,D) -> q (B,S,H,dh), k/v (B,S,KV,dh) of the
+    heads p holds (x enters the split through `copy_in` when p holds a
+    share of them)."""
     B, S, _ = x.shape
     dh = cfg.d_head
     h, kv = p.wq.shape[1] // dh, p.wk.shape[1] // dh
+    if shard is not None and p.split:
+        x = shard.copy_in(x)
     q = (x @ p.wq).reshape(B, S, h, dh)
     k = (x @ p.wk).reshape(B, S, kv, dh)
     v = (x @ p.wv).reshape(B, S, kv, dh)
@@ -89,8 +116,8 @@ def _out(p: Attention, o, cfg: ModelConfig, shard):
     """o @ wo; the heads' partial sums joined in fp32 when this rank
     holds a share of the heads."""
     y = o @ p.wo
-    if shard is not None and p.wq.shape[1] < cfg.num_heads * cfg.d_head:
-        y = shard.all_reduce_f32(y)
+    if shard is not None and p.split:
+        y = shard.reduce_out(y)
     return y
 
 
@@ -98,7 +125,7 @@ def attn_full(p: Attention, x, cfg: ModelConfig, angles, *, causal=True,
               window=0, shard=None):
     """Full-sequence self attention. Returns (out, (k, v)) for caching
     (k, v of this rank's kv heads)."""
-    q, k, v = _qkv(p, x, cfg, angles)
+    q, k, v = _qkv(p, x, cfg, angles, shard)
     o = flash_attention(q, k, v, causal=causal, window=window)
     B, S = x.shape[:2]
     return _out(p, o.reshape(B, S, -1), cfg, shard), (k, v)
@@ -112,7 +139,7 @@ def attn_decode(p: Attention, x, cfg: ModelConfig, angles, k_cache, v_cache,
     then attends over the updated cache. `kv_pos` must already include
     the current position. Returns (out, k_cache, v_cache).
     """
-    q, k_new, v_new = _qkv(p, x, cfg, angles)
+    q, k_new, v_new = _qkv(p, x, cfg, angles, shard)
     k_cache, v_cache = write_kv(k_cache, v_cache, k_new, v_new, pos)
     o = decode_attention(q, k_cache, v_cache, kv_pos, pos, window=window)
     return _out(p, o.reshape(*x.shape[:2], -1), cfg, shard), k_cache, \
@@ -167,13 +194,18 @@ class FFN(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
-        self.w.copy_(dense_init(tuple(self.w.shape), self.w.dtype,
-                                generator, self.w.device))
+        ids = slice(None) if self.rows is None else \
+            torch.from_numpy(self.rows.ids).to(self.w.device)
+        N = self.w.shape[0] if self.rows is None else self.rows.n_neurons
+        _, R, D = self.w.shape
+        self.w.copy_(dense_init((N, R, D), self.w.dtype, generator,
+                                self.w.device, index=ids))
         if self.pred_A is not None:
-            (D, r), N = self.pred_A.shape, self.pred_B.shape[1]
-            for p, v in zip(self.pred, init_predictor(
-                    D, N, r, self.w.dtype, generator, self.w.device)):
-                p.copy_(v)
+            r = self.pred_A.shape[1]
+            A, B = init_predictor(D, N, r, self.w.dtype, generator,
+                                  self.w.device)
+            self.pred_A.copy_(A)
+            self.pred_B.copy_(B[:, ids])
 
 
 def apply_ffn_block(p: FFN, x, cfg: ModelConfig, plan, return_indices=False,

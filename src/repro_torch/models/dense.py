@@ -8,10 +8,14 @@ a Python loop. Prefill and decode run under `torch.no_grad()` (a decode
 step is captured in a CUDA graph); forward records autograd when asked.
 
 Tensor parallel: a model built with a `ShardLayout` holds one rank's
-slice (`bridge.params_from_numpy(..., shard=...)`), and prefill and
-decode take that rank's group as `shard`; embedding and the (tied)
-lm_head stay whole on every rank, so every rank computes the same
-logits.
+slice (`bridge.params_from_numpy(..., shard=...)`, or `make_model(...,
+layout=)` drawing the whole model's random weights leaf by leaf), and
+forward, prefill and decode take that rank's group as `shard`. The
+embedding holds the rank's vocab rows and the head its vocab columns
+(tied or not) when the ranks divide the padded vocabulary: the lookup
+is local and masked, joined by one fp32 all-reduce, and the logits'
+columns are gathered in rank order, so every rank gets the whole
+logits, and the same loss or token, as one rank.
 """
 from __future__ import annotations
 
@@ -70,14 +74,17 @@ class DenseModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         dtype = dtype_of(cfg.param_dtype)
-        self.embed = blocks._param((cfg.vocab_padded, cfg.d_model), dtype,
-                                   device)
+        # the vocab rows of embed (columns of lm_head) held: [lo, hi)
+        self.vocab = (0, cfg.vocab_padded) if layout is None else \
+            layout.vocab
+        n_vocab = self.vocab[1] - self.vocab[0]
+        self.embed = blocks._param((n_vocab, cfg.d_model), dtype, device)
         self.out_norm = blocks._param((cfg.d_model,), dtype, device)
         self.layers = nn.ModuleList(self.layer_type(cfg, dtype, device,
                                                     layout)
                                     for _ in range(cfg.num_layers))
         self.lm_head = None if cfg.tie_embeddings else blocks._param(
-            (cfg.d_model, cfg.vocab_padded), dtype, device)
+            (cfg.d_model, n_vocab), dtype, device)
 
     @property
     def device(self) -> torch.device:
@@ -93,16 +100,20 @@ class DenseModel(nn.Module):
     def init_weights(self, generator: torch.Generator):
         """Random weights from `generator`: truncated normal at
         1/sqrt(fan_in), embeddings N(0, 0.02), norm weights zero (the
-        (1 + w) scale makes that the identity) — the reference's rules."""
+        (1 + w) scale makes that the identity) — the reference's rules.
+        A slice draws each leaf whole and keeps its part, so it holds the
+        whole model's weights for the same generator."""
         cfg = self.cfg
+        lo, hi = self.vocab
         self.embed.copy_(embed_init(cfg.vocab_padded, cfg.d_model,
-                                    self.embed.dtype, generator, self.device))
+                                    self.embed.dtype, generator,
+                                    self.device, index=slice(lo, hi)))
         for layer in self.layers:
             layer.init_weights(generator)
         if self.lm_head is not None:
-            self.lm_head.copy_(dense_init(tuple(self.lm_head.shape),
-                                          self.lm_head.dtype, generator,
-                                          self.device))
+            self.lm_head.copy_(dense_init(
+                (cfg.d_model, cfg.vocab_padded), self.lm_head.dtype,
+                generator, self.device, index=(slice(None), slice(lo, hi))))
         return self
 
     def init_cache(self, batch: int, seq_len: int):
@@ -131,27 +142,55 @@ def make_model(cfg: ModelConfig, device=None, seed: Optional[int] = 0,
 
 # -------------------------------------------------------------- forward ----
 
-def embed_tokens(model: DenseModel, tokens):
+def vocab_of(model) -> tuple:
+    """The vocab rows [lo, hi) a model's embedding holds (every family's
+    model; only the dense and moe models split it)."""
+    return getattr(model, "vocab", (0, model.cfg.vocab_padded))
+
+
+def embed_tokens(model: DenseModel, tokens, shard=None):
     """Embedding rows of `tokens`, with `jnp.take`'s rules for ids out of
     range: an id in [-V, 0) wraps, any id >= V or < -V gives a NaN row
-    (V = the padded vocabulary)."""
-    V = model.embed.shape[0]
+    (V = the padded vocabulary). A model holding a share of the vocab
+    looks up the ids in its rows, zeros elsewhere (rank 0 also writes
+    the NaN rows, so each enters the sum once), and the ranks' rows are
+    summed in fp32 (`shard.reduce_out`)."""
+    V = model.cfg.vocab_padded
     t = tokens.long()
     ok = (t >= -V) & (t < V)
-    x = model.embed[torch.where(ok, t, 0)]          # negative ids wrap
-    x = torch.where(ok[..., None], x, torch.full_like(x, float("nan")))
-    return x.to(dtype_of(model.cfg.compute_dtype))
+    t = torch.where(t < 0, t + V, t)                 # negative ids wrap
+    lo, hi = vocab_of(model)
+    if hi - lo == V:
+        x = model.embed[torch.where(ok, t, 0)]
+        x = torch.where(ok[..., None], x, torch.full_like(x, float("nan")))
+        return x.to(dtype_of(model.cfg.compute_dtype))
+    mine = ok & (t >= lo) & (t < hi)
+    x = model.embed[torch.where(mine, t - lo, 0)]
+    fill = float("nan") if shard.rank == 0 else 0.0
+    x = torch.where(mine[..., None], x,
+                    torch.where(ok[..., None], torch.zeros_like(x),
+                                torch.full_like(x, fill)))
+    return shard.reduce_out(x).to(dtype_of(model.cfg.compute_dtype))
 
 
-def lm_logits(model: DenseModel, x):
+def lm_logits(model: DenseModel, x, shard=None):
+    """Logits (..., V_padded) of the final hidden states, the padding
+    classes masked to -1e30 (out of place: autograd keeps the product).
+    A model holding a share of the vocab computes its columns from x
+    entered through `shard.copy_in` and gathers the ranks' columns."""
     cfg = model.cfg
     x = rms_norm(x, model.out_norm, cfg.norm_eps)
     head = model.embed.T if cfg.tie_embeddings else model.lm_head
+    lo, hi = vocab_of(model)
+    split = hi - lo < cfg.vocab_padded
+    if split:
+        x = shard.copy_in(x)
     logits = x @ head.to(x.dtype)
-    if cfg.vocab_padded != cfg.vocab_size:
+    if cfg.vocab_size < hi:
         # mask the padding classes (vocab padded for shardability)
-        logits[..., cfg.vocab_size:] = -1e30
-    return logits
+        cols = torch.arange(lo, hi, device=logits.device)
+        logits = logits.masked_fill(cols >= cfg.vocab_size, -1e30)
+    return shard.gather_vocab(logits) if split else logits
 
 
 def _layer_full(layer, x, cfg: ModelConfig, angles, plan, shard):
@@ -181,16 +220,18 @@ def forward_from_embeds(model: DenseModel, x, angles, *, plan=None,
     return x, kvs
 
 
-def forward(model: DenseModel, tokens, plan: Optional[HybridPlan] = None):
+def forward(model: DenseModel, tokens, plan: Optional[HybridPlan] = None,
+            shard=None):
     """Full-sequence logits (B, S, V) of tokens (B, S) under 1-D RoPE;
     differentiable (the training forward) when grad is enabled and the
-    parameters require it."""
+    parameters require it. `shard`: the rank's group when the model is
+    one rank's slice."""
     cfg = model.cfg
-    x = embed_tokens(model, tokens)
+    x = embed_tokens(model, tokens, shard)
     pos = torch.arange(x.shape[1], device=x.device)
     angles = rope_angles(pos, cfg.d_head // 2, cfg.rope_theta)
-    x, _ = forward_from_embeds(model, x, angles, plan=plan)
-    return lm_logits(model, x)
+    x, _ = forward_from_embeds(model, x, angles, plan=plan, shard=shard)
+    return lm_logits(model, x, shard)
 
 
 # -------------------------------------------------------- prefill/decode ----
@@ -214,7 +255,8 @@ def prefill_from_embeds(model: DenseModel, x, angles,
                                  shard=shard)
     cache = init_full_cache(cfg.num_layers, B, T, model.kv_heads,
                             cfg.d_head, dtype_of(cfg.param_dtype), x.device)
-    return lm_logits(model, x[:, -1:]), write_prefill(cache, kvs, S, n)
+    return lm_logits(model, x[:, -1:], shard), write_prefill(cache, kvs, S,
+                                                             n)
 
 
 @torch.no_grad()
@@ -222,7 +264,7 @@ def prefill(model: DenseModel, tokens, max_len: Optional[int] = None,
             shard=None):
     """Dense prefill of tokens (B, S); see `prefill_from_embeds`."""
     cfg = model.cfg
-    x = embed_tokens(model, tokens)
+    x = embed_tokens(model, tokens, shard)
     pos = torch.arange(x.shape[1], device=x.device)
     angles = rope_angles(pos, cfg.d_head // 2, cfg.rope_theta)
     return prefill_from_embeds(model, x, angles, max_len, shard)
@@ -248,7 +290,7 @@ def decode_step(model: DenseModel, tokens, cache,
     the whole group's, gathered)."""
     cfg = model.cfg
     pos = cache["length"]                              # (B,)
-    x = embed_tokens(model, tokens)
+    x = embed_tokens(model, tokens, shard)
     angles = angles_fn(pos) if angles_fn else rope_angles(
         pos[:, None], cfg.d_head // 2, cfg.rope_theta)
     kv_pos = write_pos(cache["kv_pos"], pos)
@@ -267,7 +309,7 @@ def decode_step(model: DenseModel, tokens, cache,
             cidxs.append(cidx)
         x = x + f
     cache["length"].add_(1)      # pos is this tensor: every use came first
-    logits = lm_logits(model, x)
+    logits = lm_logits(model, x, shard)
     if collect_indices:
         # the dense path (no plan, or sparse FFN off) selects nothing
         trace = torch.stack(cidxs) if cidxs[0] is not None else None

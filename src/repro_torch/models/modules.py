@@ -33,28 +33,37 @@ def resolve_device(device) -> torch.device:
 
 
 def trunc_normal(shape, generator: torch.Generator, device, std: float = 1.0,
-                 bound: float = 2.0) -> torch.Tensor:
+                 bound: float = 2.0, index=None) -> torch.Tensor:
     """fp32 normal truncated to [-bound, bound] standard deviations, by
-    inverting the normal CDF on a uniform draw from `generator`."""
+    inverting the normal CDF on a uniform draw from `generator`. With
+    `index`, the part [index] of that draw: the whole shape is drawn (the
+    generator advances as for the whole) and only the part transformed,
+    which is elementwise, so it equals the whole's part bit for bit."""
     lo = 0.5 * (1.0 + math.erf(-bound / math.sqrt(2.0)))
     hi = 0.5 * (1.0 + math.erf(bound / math.sqrt(2.0)))
     u = torch.rand(shape, generator=generator, device=device,
                    dtype=torch.float32)
+    if index is not None:
+        u = u[index]
     z = torch.erfinv(2.0 * (lo + u * (hi - lo)) - 1.0) * math.sqrt(2.0)
     return z.clamp_(-bound, bound) * std
 
 
-def dense_init(shape, dtype, generator, device, scale: float | None = None):
+def dense_init(shape, dtype, generator, device, scale: float | None = None,
+               index=None):
     """Truncated-normal init with 1/sqrt(fan_in) scale (last-but-one dim),
-    the reference's rule."""
+    the reference's rule; with `index`, that part of it (`trunc_normal`)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    return trunc_normal(shape, generator, device, std=scale).to(dtype)
+    return trunc_normal(shape, generator, device, std=scale,
+                        index=index).to(dtype)
 
 
-def embed_init(vocab: int, dim: int, dtype, generator, device):
-    return (torch.randn((vocab, dim), generator=generator, device=device,
-                        dtype=torch.float32) * 0.02).to(dtype)
+def embed_init(vocab: int, dim: int, dtype, generator, device, index=None):
+    """N(0, 0.02) embedding rows; with `index`, that part of them."""
+    z = torch.randn((vocab, dim), generator=generator, device=device,
+                    dtype=torch.float32)
+    return ((z if index is None else z[index]) * 0.02).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5):

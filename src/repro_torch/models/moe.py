@@ -23,16 +23,23 @@ trace whose columns past the first count the real activations of each
 intra-expert cold cluster, thresholded off the unchanged dense expert
 activations, so decode stays token-identical to whole-expert decode.
 
-Expert parallel (`_moe_ep_shard_map`'s scheme): over a group of n ranks
-with `moe_shard_mode == "ep"` and E % n == 0, rank s holds experts
-[s*E/n, (s+1)*E/n) and its share of the shared experts' rows (the hot
-split of `parallel.hot_range`). Routing runs whole on every rank; each
-rank dispatches only its experts' entries into an (E/n, C, D) buffer,
-runs their GEMMs, combines a partial output, and one fp32 all-reduce
-joins the partials with the shared experts'. The two-level trace's
-(E/n, 1+ncc) blocks are gathered in expert order. When E % n != 0 every
-rank holds and runs every expert; `moe_shard_mode == "tp"` over n > 1
-ranks raises.
+Over a group of n ranks (`_moe_split`): routing, capacity and slots run
+whole on every rank, so each rank picks exactly the single-device
+experts. With `moe_shard_mode == "ep"` and E % n == 0
+(`_moe_ep_shard_map`'s scheme) rank s holds experts [s*E/n, (s+1)*E/n)
+and runs only their slots, in one dispatch group; with "tp" (grok-1,
+whose 8 experts do not cover the ranks: the reference's `experts` spec
+P(None, 'model')) rank s holds rows [s*f/n, (s+1)*f/n) of every expert
+and runs every expert's GEMMs over them, in the config's dispatch
+groups. Either way the rank also holds a share of the shared experts'
+rows (`parallel.hot_range`), combines a partial (T, D) output, and one
+fp32 all-reduce joins the partials. The rows enter through `copy_in`
+(and so do the routing weights of the combine), so the backward sums
+the partial gradients of x and of the router. The two-level trace's
+(E/n, 1+ncc) blocks are gathered in expert order under ep; under tp
+each rank counts the clusters of its rows and the counts are gathered
+in rank order. When E % n != 0 under ep every rank holds and runs every
+expert.
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ from repro_torch.core.planner import _act_threshold
 from repro_torch.core.sparse_ffn import ffn_dense, ffn_rows
 from repro_torch.models import blocks, dense
 from repro_torch.models.modules import activation_fn, dense_init
-from repro_torch.parallel import expert_parallel
+from repro_torch.parallel import expert_parallel, neuron_parallel
 
 
 # ------------------------------------------------------------- MoE FFN ----
@@ -56,18 +63,23 @@ class MoEFFN(nn.Module):
     """router (D, E), routed experts (E, f, R, D) and, when the config
     has shared experts, their bundled weights `shared` (n_sh*f, R, D)
     (the reference's `shared.w`). With a layout, `experts` holds the
-    rank's experts and `shared` its rows; the router is whole."""
+    rank's experts (ep) or every expert's rows `expert_rows` (tp), and
+    `shared` its shared rows; the router is whole."""
 
     def __init__(self, cfg: ModelConfig, dtype, device, layout=None):
         super().__init__()
         E, f, D = cfg.num_experts, cfg.d_ff, cfg.d_model
         R = ffn_rows(cfg.activation)
-        n_sh = cfg.num_shared_experts * f
-        e_loc = E if layout is None else layout.experts[1]
-        if layout is not None:
-            n_sh = layout.shared[1] - layout.shared[0]
+        S = cfg.num_shared_experts * f
+        self.whole = (E, f, R, D, S)
+        self.expert_range = (0, E) if layout is None else layout.experts
+        self.expert_rows = (0, f) if layout is None else layout.expert_rows
+        self.shared_rows = (0, S) if layout is None else layout.shared
+        e_loc = self.expert_range[1]
+        f_loc = self.expert_rows[1] - self.expert_rows[0]
+        n_sh = self.shared_rows[1] - self.shared_rows[0]
         self.router = blocks._param((D, E), dtype, device)
-        self.experts = blocks._param((e_loc, f, R, D), dtype, device)
+        self.experts = blocks._param((e_loc, f_loc, R, D), dtype, device)
         self.shared = blocks._param((n_sh, R, D), dtype, device) \
             if cfg.num_shared_experts else None
 
@@ -75,15 +87,25 @@ class MoEFFN(nn.Module):
     def init_weights(self, generator: torch.Generator):
         """The reference's rules: truncated normal at 1/sqrt(fan_in),
         fan_in the last-but-one dim (D for the router, R for the bundled
-        experts). One expert at a time, to bound the fp32 temporaries."""
-        for p in (self.router, self.shared):
-            if p is not None:
-                p.copy_(dense_init(tuple(p.shape), p.dtype, generator,
-                                   p.device))
-        for e in range(self.experts.shape[0]):
-            ex = self.experts[e]
-            ex.copy_(dense_init(tuple(ex.shape), ex.dtype, generator,
-                                ex.device))
+        experts). One expert at a time, to bound the fp32 temporaries;
+        a slice draws every leaf (every expert) whole and keeps its
+        part."""
+        E, f, R, D, S = self.whole
+        dev = self.router.device
+        self.router.copy_(dense_init((D, E), self.router.dtype, generator,
+                                     dev))
+        if self.shared is not None:
+            self.shared.copy_(dense_init((S, R, D), self.shared.dtype,
+                                         generator, dev,
+                                         index=slice(*self.shared_rows)))
+        e0, ne = self.expert_range
+        rows = slice(*self.expert_rows)
+        for e in range(E):
+            held = e0 <= e < e0 + ne
+            ex = dense_init((f, R, D), self.experts.dtype, generator, dev,
+                            index=rows if held else slice(0, 0))
+            if held:
+                self.experts[e - e0].copy_(ex)
 
 
 def _capacity(T: int, k: int, E: int, factor: float) -> int:
@@ -138,18 +160,22 @@ def _expert_counts(tope, keep, E: int):
     return counts[:E].to(torch.int32)
 
 
-def _dispatch_group(xt, router, cfg: ModelConfig, C: int, active=None):
+def _dispatch_group(xt, router, cfg: ModelConfig, C: int, active=None,
+                    xs=None):
     """One dispatch group: xt (T, D) -> (buf (E, C, D), (slot, keep,
     topv), aux loss, per-expert kept counts). The softmax and the aux
     loss are fp32. Each (token, expert) entry is scatter-added at its
-    slot with weight keep; a dropped entry adds 0*x to slot 0."""
+    slot with weight keep; a dropped entry adds 0*x to slot 0. `xs`
+    (default xt): the same rows as they enter a split region, which fill
+    the buffer while xt routes."""
     T, D = xt.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     gates = torch.softmax(xt.float() @ router.float(), dim=-1)
     tope, topv, slot, keep = moe_dispatch(gates, k, C, active)
-    xk = xt[:, None].expand(T, k, D).reshape(T * k, D)
+    xs = xt if xs is None else xs
+    xk = xs[:, None].expand(T, k, D).reshape(T * k, D)
     wgt = keep.reshape(-1).to(xt.dtype)
-    buf = torch.zeros((E * C, D), dtype=xt.dtype, device=xt.device)
+    buf = torch.zeros((E * C, D), dtype=xs.dtype, device=xt.device)
     buf.index_add_(0, slot.reshape(-1).long(), xk * wgt[:, None])
     # router load-balance aux loss (Switch-style)
     me = gates.mean(dim=0)
@@ -213,37 +239,64 @@ def _experts_ffn(buf, w, activation: str):
     return h, _expert_gemm(h, w[:, :, -1])
 
 
-def _moe_ep(moe: MoEFFN, xt, cfg: ModelConfig, C: int, mask, plan,
-            collect_trace: bool, shard):
-    """Expert-parallel dispatch over `shard`'s n ranks (module
-    docstring); `moe` holds this rank's experts and shared rows. The
-    routing, the dispatch buffer and the combine are the single group's;
-    only this rank's experts' slots are computed, the others' outputs
-    stay 0. Returns ((T, D) output, aux, trace or None)."""
+def _moe_split(moe: MoEFFN, xt, cfg: ModelConfig, G: int, C: int, mask,
+               plan, collect_trace: bool, shard):
+    """The MoE FFN over `shard`'s n ranks (module docstring): routing,
+    capacity and slots replicated, the rank's share of the expert
+    compute (its experts under ep, every expert's rows under tp) on the
+    rows entered through `copy_in`, a partial combine with the routing
+    weights entered the same way, the rank's shared rows, and one fp32
+    `reduce_out`. Returns ((T, D) output, aux, trace or None)."""
     T, D = xt.shape
     E = cfg.num_experts
-    e_loc = E // shard.size
-    e0 = shard.rank * e_loc
-    if moe.experts.shape[0] != e_loc:
-        raise ValueError(f"expert parallel over {shard.size} ranks: the "
-                         f"layer holds {moe.experts.shape[0]} experts, "
-                         f"not {e_loc}")
-    buf, meta, aux, counts = _dispatch_group(xt, moe.router, cfg, C, mask)
-    h, yl = _experts_ffn(buf[None, e0:e0 + e_loc], moe.experts,
-                         cfg.activation)
-    yb = torch.zeros_like(buf)
-    yb[e0:e0 + e_loc] = yl[0]
-    y = _combine_group(yb.reshape(E * C, D), *meta).float()
+    n, r = shard.size, shard.rank
+    e0, ne = moe.expert_range
+    if expert_parallel(cfg, n) and (ne != E // n or e0 != r * ne):
+        raise ValueError(f"expert parallel over {n} ranks: the layer "
+                         f"holds experts [{e0}, {e0 + ne}), not rank "
+                         f"{r}'s {E // n}")
+    if neuron_parallel(cfg, n) and (ne != E or moe.experts.shape[1]
+                                    * n != cfg.d_ff):
+        raise ValueError(f"neuron parallel over {n} ranks: the layer "
+                         f"holds {ne} experts of {moe.experts.shape[1]} "
+                         f"rows, not {E} of {cfg.d_ff // n}")
+    Tg = T // G
+    xs = shard.copy_in(xt)
+    groups = [_dispatch_group(xt[g * Tg:(g + 1) * Tg], moe.router, cfg, C,
+                              mask[g * Tg:(g + 1) * Tg],
+                              xs=xs[g * Tg:(g + 1) * Tg]) for g in range(G)]
+    buf = torch.stack([q[0] for q in groups])               # (G, E, C, D)
+    h, yl = _experts_ffn(buf[:, e0:e0 + ne], moe.experts, cfg.activation)
+    if ne < E:                   # the other ranks' experts' outputs are 0
+        yb = torch.zeros_like(buf)
+        yb[:, e0:e0 + ne] = yl
+    else:
+        yb = yl
+    y = torch.cat([_combine_group(yb[i].reshape(E * C, D), slot, keep,
+                                  shard.copy_in(topv))
+                   for i, (_, (slot, keep, topv), _, _) in enumerate(groups)]
+                  ).float()
     if moe.shared is not None and moe.shared.shape[0]:   # its shared rows
-        y += ffn_dense(moe.shared, xt, cfg.activation).float()
-    y = shard.all_reduce_f32(y).to(xt.dtype)
-    trace = counts if collect_trace else None
-    if collect_trace and _two_level_trace(cfg, plan):
-        cold = _cold_cluster_counts(h, cfg, plan.n_expert_hot,
-                                    plan.cluster_size)
-        blk = torch.cat([counts[e0:e0 + e_loc, None], cold], dim=1)
-        trace = shard.all_gather_ids(blk.to(torch.int32))
-    return y, aux, trace
+        y = y + ffn_dense(moe.shared, xs, cfg.activation).float()
+    y = shard.reduce_out(y).to(xt.dtype)
+    aux = torch.stack([q[2] for q in groups]).mean()
+    if not collect_trace:
+        return y, aux, None
+    counts = torch.stack([q[3] for q in groups]).sum(dim=0).to(torch.int32)
+    if not _two_level_trace(cfg, plan):
+        return y, aux, counts
+    cs, n_hot_e = plan.cluster_size, plan.n_expert_hot
+    if ne < E:
+        # ep: this rank's (E/n, 1+ncc) block, gathered in expert order
+        cold = _cold_cluster_counts(h, cfg, n_hot_e, cs)
+        blk = torch.cat([counts[e0:e0 + ne, None], cold], dim=1)
+        return y, aux, shard.all_gather_ids(blk)
+    # tp: each rank counts its rows' clusters, gathered in rank order
+    # (its rows are whole clusters: `parallel.shard_layout` checks)
+    chunks = _cold_cluster_counts(h, cfg, 0, cs)            # (E, f/n/cs)
+    whole = shard.all_gather_ids(chunks.T.contiguous()).T   # (E, f/cs)
+    return y, aux, torch.cat([counts[:, None], whole[:, n_hot_e // cs:]],
+                             dim=1)
 
 
 def apply_moe_ffn(moe: MoEFFN, x, cfg: ModelConfig,
@@ -262,11 +315,9 @@ def apply_moe_ffn(moe: MoEFFN, x, cfg: ModelConfig,
     form. The expert compute never depends on the plan.
 
     shard: the rank's group; expert parallel over it when
-    `expert_parallel(cfg, n)` (one dispatch group only)."""
-    if shard is not None and shard.size > 1 and cfg.moe_shard_mode != "ep":
-        raise ValueError(
-            f"{cfg.name}: moe_shard_mode={cfg.moe_shard_mode!r} over "
-            f"{shard.size} ranks; only expert parallelism ('ep') is served")
+    `expert_parallel(cfg, n)` (one dispatch group only), neuron parallel
+    when `neuron_parallel(cfg, n)`; otherwise (E % n != 0 under ep)
+    every rank runs every expert and makes no collective."""
     shape = x.shape
     D = shape[-1]
     xt = x.reshape(-1, D)                                   # (T, D)
@@ -279,12 +330,13 @@ def apply_moe_ffn(moe: MoEFFN, x, cfg: ModelConfig,
     C = _capacity(Tg, k, E, cfg.moe_capacity_factor)
     mask = torch.ones(T, dtype=torch.bool, device=x.device) \
         if active_mask is None else active_mask.reshape(-1)
-    if shard is not None and expert_parallel(cfg, shard.size):
-        if G != 1:
+    n = 1 if shard is None else shard.size
+    if expert_parallel(cfg, n) or neuron_parallel(cfg, n):
+        if G != 1 and expert_parallel(cfg, n):
             raise ValueError(f"expert parallel dispatch runs one group, "
                              f"not moe_dispatch_groups={G}")
-        y, aux, trace = _moe_ep(moe, xt, cfg, C, mask, plan, collect_trace,
-                                shard)
+        y, aux, trace = _moe_split(moe, xt, cfg, G, C, mask, plan,
+                                   collect_trace, shard)
         y = y.reshape(shape)
         return (y, aux, trace) if collect_trace else (y, aux)
     groups = [_dispatch_group(xt[g * Tg:(g + 1) * Tg], moe.router, cfg, C,

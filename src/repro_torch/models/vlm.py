@@ -55,8 +55,8 @@ def make_model(cfg: ModelConfig, device=None, seed: Optional[int] = 0,
     return dense.make_model(cfg, device=device, seed=seed, layout=layout)
 
 
-def _embed(model: dense.DenseModel, tokens, patch_embeds):
-    tok = dense.embed_tokens(model, tokens)
+def _embed(model: dense.DenseModel, tokens, patch_embeds, shard=None):
+    tok = dense.embed_tokens(model, tokens, shard)
     img = patch_embeds.to(device=tok.device,
                           dtype=dtype_of(model.cfg.compute_dtype))
     return torch.cat([img, tok], dim=1)
@@ -82,13 +82,13 @@ def forward(model: dense.DenseModel, tokens, patch_embeds,
             plan: Optional[HybridPlan] = None, shard=None):
     """Logits (B, P + S_text, V) of the whole [image ; text] sequence;
     differentiable (the training forward) when grad is enabled and the
-    parameters require it."""
-    x = _embed(model, tokens, patch_embeds)
+    parameters require it. `shard` as in dense.forward."""
+    x = _embed(model, tokens, patch_embeds, shard)
     B, S = x.shape[:2]
     x, _ = dense.forward_from_embeds(
         model, x, _prefill_angles(model.cfg, B, S, x.device), plan=plan,
         shard=shard)
-    return dense.lm_logits(model, x)
+    return dense.lm_logits(model, x, shard)
 
 
 @torch.no_grad()
@@ -97,7 +97,7 @@ def prefill(model: dense.DenseModel, tokens, patch_embeds,
     """Prefill of patch_embeds (B, P, D) then tokens (B, S_text), with
     M-RoPE. Returns (logits (B, 1, V) of the last position, cache of
     `max_len` slots, default P + S_text). `shard` as in dense.prefill."""
-    x = _embed(model, tokens, patch_embeds)
+    x = _embed(model, tokens, patch_embeds, shard)
     B, S = x.shape[:2]
     return dense.prefill_from_embeds(
         model, x, _prefill_angles(model.cfg, B, S, x.device), max_len,

@@ -11,6 +11,12 @@ updates its zero gradient: its moments decay and weight decay still
 shrinks it by (1 - lr * wd). `torch.optim.AdamW` differs in each of
 these (it skips None grads, keeps moments in the parameter's dtype and
 has no clip of its own).
+
+Over ranks, each rank updates its own slices: the clip's global norm
+sums the squares of the leaves split over the replica's group (`shard`,
+the names in `split`) over that group, and the replicated leaves' once;
+the gradients are already summed over the data replicas, so nothing is
+summed there again.
 """
 from __future__ import annotations
 
@@ -45,17 +51,34 @@ class AdamW:
         }
 
     @torch.no_grad()
-    def update(self, grads: dict, state: dict, params: dict):
+    def clip_scale(self, grads: dict, shard=None, split=frozenset()):
+        """min(1, grad_clip / global norm) of `grads` (no None values),
+        in fp32; over ranks the leaves in `split` are summed over
+        `shard` (see `update`)."""
+        if shard is None or shard.size == 1 or not split:
+            gn = torch.sqrt(sum(g.float().square().sum()
+                                for g in grads.values()))
+        else:
+            sq = {k: g.float().square().sum() for k, g in grads.items()}
+            part = shard.all_reduce_f32(
+                sum(v for k, v in sq.items() if k in split))
+            gn = torch.sqrt(part + sum(v for k, v in sq.items()
+                                       if k not in split))
+        return torch.clamp(self.grad_clip / (gn + 1e-9), max=1.0)
+
+    @torch.no_grad()
+    def update(self, grads: dict, state: dict, params: dict, shard=None,
+               split=frozenset()):
         """(new params, new state), new tensors; `params` and `state` are
         left as they are. `grads` maps each key of `params` to its
-        gradient or None."""
+        gradient or None. `shard`: the group of ranks over which the
+        leaves named in `split` are split (the clip sums their squares
+        over it)."""
         grads = {k: torch.zeros_like(p) if grads.get(k) is None
                  else grads[k] for k, p in params.items()}
         step = state["step"] + 1
         if self.grad_clip:
-            gn = torch.sqrt(sum(g.float().square().sum()
-                                for g in grads.values()))
-            scale = torch.clamp(self.grad_clip / (gn + 1e-9), max=1.0)
+            scale = self.clip_scale(grads, shard, split)
             grads = {k: g * scale.to(g.dtype) for k, g in grads.items()}
         dt = dtype_of(self.moment_dtype)
         b1, b2 = self.b1, self.b2

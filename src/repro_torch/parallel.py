@@ -14,9 +14,23 @@ the model code receives where the reference reads the mesh:
   cluster ids are gathered in rank order (`core/sparse_ffn.py`);
 * attention splits by heads when the heads and the kv heads divide the
   ranks, with one fp32 all-reduce after `wo` (`models/blocks.py`);
-* moe splits by whole experts under `moe_shard_mode == "ep"`
-  (`models/moe.py`);
-* dp replicas each run on their own group of ranks (`replica_groups`).
+* moe splits by whole experts under `moe_shard_mode == "ep"` and by
+  each expert's neurons under "tp" (`models/moe.py`);
+* the embedding splits by vocab rows and the head by vocab columns when
+  the ranks divide the padded vocabulary (`vocab_range`); the logits
+  are gathered whole on every rank (`models/dense.py`);
+* dp replicas each run on their own group of ranks (`replica_groups`),
+  and the ranks that share a tp index across replicas form the data
+  groups (`data_groups`) over which training sums its gradients.
+
+Every split region is entered through `ShardGroup.copy_in` (the
+identity forward, an fp32 all-reduce of the gradient backward) and left
+through `reduce_out` (an fp32 all-reduce forward, the identity
+backward), so a train step over ranks gives each rank the gradient of
+its slices and the whole gradient of every replicated parameter.
+`gather_vocab` joins the vocab columns in rank order; its backward takes
+the rank's own columns, since every rank computes the same loss from the
+gathered logits.
 
 A group of size 1 takes the single-device code path and makes no
 collective call. `spawn` starts the ranks of one host as processes
@@ -41,7 +55,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["ShardGroup", "LOCAL", "NeuronRows", "ShardLayout", "hot_range",
-           "cold_range", "ffn_ranges", "shard_layout", "replica_groups",
+           "cold_range", "ffn_ranges", "shard_layout", "vocab_range",
+           "replica_groups", "data_groups", "grid", "replica_cfg",
            "init_world", "spawn"]
 
 # seconds a collective may wait for its peers before it raises
@@ -79,6 +94,36 @@ class ShardGroup:
         self.calls += 1
         return t.to(y.dtype)
 
+    def all_gather_cols(self, t: torch.Tensor) -> torch.Tensor:
+        """Each rank's (..., c) tensor joined along the last dim in rank
+        order -> (..., size * c), gathered in fp32 (exact for fp16 and
+        bf16) and cast back to t's dtype."""
+        if self.size == 1:
+            return t
+        f = t.to(torch.float32).contiguous()
+        parts = [torch.empty_like(f) for _ in range(self.size)]
+        dist.all_gather(parts, f, group=self.group)
+        self.calls += 1
+        return torch.cat(parts, dim=-1).to(t.dtype)
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        """x at the entry of a split region: the identity forward; the
+        backward sums the ranks' partial gradients in fp32."""
+        return _CopyIn.apply(x, self) if _records(self, x) else x
+
+    def reduce_out(self, y: torch.Tensor) -> torch.Tensor:
+        """The ranks' partial y summed in fp32 (`all_reduce_f32`) at the
+        exit of a split region; the backward passes the gradient on."""
+        return _ReduceOut.apply(y, self) if _records(self, y) else \
+            self.all_reduce_f32(y)
+
+    def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """The ranks' vocab columns of the logits joined in rank order;
+        the backward keeps this rank's columns of the gradient (every
+        rank computes the same loss from the whole logits, so no sum)."""
+        return _GatherVocab.apply(logits, self) \
+            if _records(self, logits) else self.all_gather_cols(logits)
+
     def all_gather_ids(self, idx: torch.Tensor) -> torch.Tensor:
         """Each rank's (g, ...) ids stacked in rank order -> (size * g,
         ...), gathered on the host (the ids are read there anyway) and
@@ -99,6 +144,16 @@ class ShardGroup:
         self.calls += 1
         return t
 
+    def gather_objects(self, obj, dst: int = 0):
+        """Each rank's picklable object, in rank order, on the group's
+        rank `dst`; None on the other ranks."""
+        if self.size == 1:
+            return [obj]
+        box = [None] * self.size if self.rank == dst else None
+        dist.gather_object(obj, box, dst=self.ranks[dst], group=self.group)
+        self.calls += 1
+        return box
+
     def broadcast_object(self, obj, src: int = 0):
         """A picklable object from the group's rank `src` to every rank
         (the other ranks pass None)."""
@@ -111,6 +166,46 @@ class ShardGroup:
         return box[0]
 
 
+def _records(shard: ShardGroup, t: torch.Tensor) -> bool:
+    """True when a collective on t needs its autograd function: a group
+    of several ranks and a tensor autograd is recording (a serve step,
+    under no_grad, calls the raw collective)."""
+    return shard.size > 1 and torch.is_grad_enabled() and t.requires_grad
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shard.all_reduce_f32(g.contiguous()), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, shard):
+        return shard.all_reduce_f32(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherVocab(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.rank, ctx.cols = shard.rank, x.shape[-1]
+        return shard.all_gather_cols(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.rank * ctx.cols
+        return g[..., lo:lo + ctx.cols].contiguous(), None
+
+
 # the group of one rank: the single-device path, no collective
 LOCAL = ShardGroup(0, 1)
 
@@ -121,11 +216,9 @@ def replica_groups(world: ShardGroup, dp: int, tp: int) -> list:
     replica keeps its own row of ranks). Every rank of `world` must call
     this, in the same order, since creating a group is collective; a
     rank outside replica r gets that replica's group with rank None."""
-    if dp * tp != world.size:
-        raise ValueError(f"dp={dp} x tp={tp} does not fill a world of "
-                         f"{world.size} ranks")
+    _fills(world, dp, tp)
     out = []
-    me = world.ranks[world.rank]
+    me = _me(world)
     for r in range(dp):
         ranks = tuple(world.ranks[r * tp:(r + 1) * tp])
         pg = dist.new_group(list(ranks), backend="gloo",
@@ -133,6 +226,62 @@ def replica_groups(world: ShardGroup, dp: int, tp: int) -> list:
         out.append(ShardGroup(ranks.index(me) if me in ranks else None,
                               tp, pg, world.device, ranks))
     return out
+
+
+def data_groups(world: ShardGroup, dp: int, tp: int) -> list:
+    """One ShardGroup per tp index j: the ranks {r*tp + j} of the dp
+    replicas, over which training sums its gradients (the columns of
+    the grid whose rows `replica_groups` gives). Every rank of `world`
+    must call this, in the same order."""
+    _fills(world, dp, tp)
+    out = []
+    me = _me(world)
+    for j in range(tp):
+        ranks = tuple(world.ranks[r * tp + j] for r in range(dp))
+        pg = dist.new_group(list(ranks), backend="gloo",
+                            timeout=_timeout()) if dp > 1 else None
+        out.append(ShardGroup(ranks.index(me) if me in ranks else None,
+                              dp, pg, world.device, ranks))
+    return out
+
+
+def grid(world: ShardGroup, dp: int, tp: int) -> tuple:
+    """(this rank's replica group, its data group) of the dp x tp grid
+    over `world`'s dp*tp ranks: replica r on ranks [r*tp, (r+1)*tp).
+    Every rank that created `world` calls; one that is no member of it
+    gets groups it is no member of (rank None)."""
+    rows = replica_groups(world, dp, tp)
+    cols = data_groups(world, dp, tp)
+    if not world.member:
+        return rows[0], cols[0]
+    return rows[world.rank // tp], cols[world.rank % tp]
+
+
+def _fills(world: ShardGroup, dp: int, tp: int):
+    if dp * tp != world.size:
+        raise ValueError(f"dp={dp} x tp={tp} does not fill a world of "
+                         f"{world.size} ranks")
+
+
+def _me(world: ShardGroup):
+    """This process's global rank, None when it is no member of world."""
+    return world.ranks[world.rank] if world.member else None
+
+
+def replica_cfg(cfg, dp: int):
+    """cfg as one of dp data-parallel replicas runs it: the moe
+    dispatch's token groups split over the replicas (each replica
+    routes its rows of the global batch in `moe_dispatch_groups // dp`
+    groups of the global capacity, as `launch/mesh.py::dispatch_groups`
+    derives the groups from the mesh). Raises when dp does not divide
+    the groups."""
+    if dp == 1 or not cfg.num_experts:
+        return cfg
+    G = max(cfg.moe_dispatch_groups, 1)
+    if G % dp:
+        raise ValueError(f"{cfg.name}: moe_dispatch_groups={G} does not "
+                         f"split over dp={dp} replicas")
+    return cfg.replace(moe_dispatch_groups=G // dp)
 
 
 # ----------------------------------------------------------- the layout ----
@@ -219,12 +368,16 @@ class NeuronRows:
 @dataclass(frozen=True)
 class ShardLayout:
     """What one rank holds of the model: its attention heads (all of them
-    unless both head counts divide the ranks), its FFN rows (dense and
-    vlm) and its routed experts and shared rows (moe)."""
+    unless both head counts divide the ranks), its vocab rows of the
+    embedding and columns of the head, its FFN rows (dense and vlm), and
+    its routed experts, each expert's neuron rows and its shared rows
+    (moe)."""
     heads: tuple            # (first q head, q heads, first kv head, kv heads)
     ffn: Optional[NeuronRows] = None
     experts: tuple = (0, 0)  # (first expert, experts)
     shared: tuple = (0, 0)   # shared-expert rows [lo, hi)
+    vocab: tuple = (0, 0)    # vocab rows [lo, hi) of embed, columns of head
+    expert_rows: tuple = (0, 0)  # each held expert's neuron rows [lo, hi)
 
 
 def attention_sharded(cfg, n: int) -> bool:
@@ -240,35 +393,74 @@ def expert_parallel(cfg, n: int) -> bool:
         cfg.num_experts % n == 0
 
 
+def neuron_parallel(cfg, n: int) -> bool:
+    """Each expert's d_ff rows split over n ranks: moe_shard_mode 'tp'
+    (the reference's `experts` spec P(None, 'model', None, None))."""
+    return n > 1 and cfg.num_experts > 0 and cfg.moe_shard_mode == "tp"
+
+
+def vocab_range(cfg, rank: int, n: int) -> tuple:
+    """The vocab rows of the embedding (and columns of the head) that
+    rank holds: an n-th of the padded vocabulary when n divides it, else
+    all of it (the reference's `_filter_spec` replicates a dim the axis
+    does not divide)."""
+    V = cfg.vocab_padded
+    if n > 1 and V % n == 0:
+        return (rank * V // n, (rank + 1) * V // n)
+    return (0, V)
+
+
+def _moe_layout(cfg, plan, rank: int, n: int, heads, vocab) -> ShardLayout:
+    E, f = cfg.num_experts, cfg.d_ff
+    S = cfg.num_shared_experts * f
+    experts, rows, shared = (0, E), (0, f), (0, S)
+    if expert_parallel(cfg, n):
+        experts = (rank * E // n, E // n)
+        shared = hot_range(S, rank, n)
+    elif neuron_parallel(cfg, n):
+        if f % n:
+            raise ValueError(f"{cfg.name}: d_ff={f} does not split over "
+                             f"{n} ranks")
+        cs = getattr(plan, "cluster_size", 0)
+        if cfg.moe_intra_expert and plan is not None and (f // n) % cs:
+            raise ValueError(
+                f"{cfg.name}: each rank's {f // n} rows of an expert are "
+                f"not whole clusters of {cs}; the two-level trace counts "
+                f"whole clusters per rank")
+        rows = (rank * f // n, (rank + 1) * f // n)
+        shared = hot_range(S, rank, n)
+    return ShardLayout(heads, experts=experts, shared=shared, vocab=vocab,
+                       expert_rows=rows)
+
+
 def shard_layout(cfg, plan, rank: int, n: int) -> ShardLayout:
-    """Rank `rank` of `n`'s slice of `cfg`'s model served with `plan`
-    (an ExecutionPlan): the counterpart of the reference's param specs
-    filtered by `_filter_spec` (a dim that n does not divide
-    replicates). Its FFN rows are the union, over every bucket plan, of
-    the rows a decode step computes (`ffn_ranges`), so each bucket's hot
-    and cold slices are views of the local bundle."""
+    """Rank `rank` of `n`'s slice of `cfg`'s model: the counterpart of
+    the reference's param specs filtered by `_filter_spec` (a dim that n
+    does not divide replicates). Served with `plan` (an ExecutionPlan),
+    its FFN rows are the union, over every bucket plan, of the rows a
+    decode step computes (`ffn_ranges`), so each bucket's hot and cold
+    slices are views of the local bundle; for training (plan None) they
+    are the rank's n-th of the N rows. The vocab splits as
+    `vocab_range` gives it; moe experts split by whole experts ('ep')
+    or by each expert's rows ('tp', `neuron_parallel`)."""
     h, kv = cfg.num_heads, cfg.num_kv_heads
     if attention_sharded(cfg, n):
         heads = (rank * h // n, h // n, rank * kv // n, kv // n)
     else:
         heads = (0, h, 0, kv)
+    vocab = vocab_range(cfg, rank, n)
     if cfg.num_experts:
-        if n > 1 and cfg.moe_shard_mode != "ep":
-            raise ValueError(
-                f"{cfg.name}: moe_shard_mode={cfg.moe_shard_mode!r} over "
-                f"{n} ranks; only expert parallelism ('ep') is served")
-        E, S = cfg.num_experts, cfg.num_shared_experts * cfg.d_ff
-        if expert_parallel(cfg, n):
-            experts = (rank * E // n, E // n)
-            shared = hot_range(S, rank, n)
-        else:
-            experts, shared = (0, E), (0, S)
-        return ShardLayout(heads, experts=experts, shared=shared)
+        return _moe_layout(cfg, plan, rank, n, heads, vocab)
     N = cfg.d_ff
+    if plan is None:
+        dense = [hot_range(N, rank, n)]
+        return ShardLayout(heads, ffn=NeuronRows(dense, N, dense),
+                           vocab=vocab)
     plans = list(plan.plans.values())
     ranges = [r for p in plans for r in ffn_ranges(p, N, rank, n)]
     dense = dense_ranges(plan.plan_for_batch(1), N, rank, n)
-    return ShardLayout(heads, ffn=NeuronRows(ranges + dense, N, dense))
+    return ShardLayout(heads, ffn=NeuronRows(ranges + dense, N, dense),
+                       vocab=vocab)
 
 
 # -------------------------------------------------------------- launch ----

@@ -13,7 +13,6 @@ moe goldens (tests/test_distributed.py :219 and :289) on the port.
   identical to the reference's dense-expert engine; the (L, E, 1+ncc)
   traces identical across ep (each rank's (E/2, 1+ncc) blocks gathered
   in expert order); the stats the reference plane's on that trace.
-* `moe_shard_mode="tp"` over more than one rank raises.
 
 The rank functions import only the port.
 """
@@ -22,12 +21,10 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config as tget_config
 from repro_torch.core.planner import PHONE, build_moe_plan
-from repro_torch.models import moe as tmoe
 from repro_torch.parallel import ShardGroup, replica_groups, spawn
 from repro_torch.serving.engine import ServeEngine
 
@@ -210,22 +207,3 @@ def test_dp2_ep2_routes_both_replicas(served):
 
 def test_spawned_ep_ranks_import_no_jax(served):
     assert all(r["foreign"] == [] for r in served["ranks"])
-
-
-def test_moe_tp_mode_refused_over_ranks():
-    """grok-1-314b shards its experts by neurons (moe_shard_mode 'tp'),
-    which the port does not serve over ranks: building a rank's slice
-    and running its MoE both raise before any collective."""
-    cfg = tget_config("grok-1-314b").reduced()
-    assert cfg.moe_shard_mode == "tp"
-    two = ShardGroup(0, 2, None, torch.device("cpu"), (0, 1))
-    with pytest.raises(ValueError, match="moe_shard_mode='tp'"):
-        params_from_numpy({}, cfg, "cpu", shard=two)
-    model = tmoe.make_model(cfg, device="cpu")
-    x = torch.zeros((2, cfg.d_model))
-    with pytest.raises(ValueError, match="moe_shard_mode='tp'"):
-        tmoe.apply_moe_ffn(model.layers[0].moe, x, cfg, shard=two)
-    # one rank is the single-device path, whatever the mode
-    y, _ = tmoe.apply_moe_ffn(model.layers[0].moe, x, cfg,
-                              shard=ShardGroup(0, 1))
-    assert y.shape == x.shape
