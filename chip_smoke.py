@@ -206,6 +206,38 @@ without printing a result:
             in fp32 at full width cut in depth (recurrentgemma across its
             ring's wrap); one fp32 train step of each reduced config,
             card against CPU;
+   famtp  — the ssm, hybrid and encdec families over four gloo ranks
+            sharing the card (as phase tp), bf16 unless marked, widths
+            whole: mamba2-130m whole (24 layers), prefill 64 tokens then
+            16 greedy decode steps at B 2 at tp 2 and 4 against tp=1 (fp32:
+            tokens identical, logits within 1e-5 of max |logit|; bf16:
+            each layer's prefill output on the same x within 1e-2 of max
+            |y|; no kernel launch); recurrentgemma-9b at tp=4 and
+            seamless-m4t-large-v2 at tp 2 and 4 under make_plan's "pallas"
+            plan of groups=4, fused_cold_ffn once per FFN layer and decode
+            step on every rank: in fp32 (one rec, rec, attn group; 2
+            encoder and 2 decoder layers) tokens and every step's gathered
+            ids identical to tp=1's, logits within 1e-5 of max |logit|;
+            in bf16 (6 of 38 layers, two whole groups; 4 encoder and 4
+            decoder layers)
+            each layer's prefill output on the same x within 1e-2 of max
+            |y| of the whole model's, the prefill logits' distance and the
+            token agreement with tp=1 reported,
+            every (step, layer)'s gathered ids against the unsharded
+            selection on the same x (near ties aside), layer 0's per-rank
+            kernel against its plain version at B 1/4/32 on the rank's
+            weights and x from the decode, timed in a CUDA graph beside its
+            bound; mamba2-130m training at dp=2 x tp=2 against one rank:
+            one fp32 step (loss within 1e-6 relative, gathered gradients
+            within 1e-4 of max |g|, the worst printed beside one rank's own
+            noise on the batch with its rows reversed), then 10 bf16 steps
+            of launch.train's loop at its own recipe (lr 1e-3, batch 8,
+            seq 128; losses within 1e-2, the last below the first); per rank
+            the wall and collectives per step and the weights;
+   examples — the four examples of examples_torch/ (quickstart,
+            best_of_n, offloaded_serving, plan_and_inspect) on the card at
+            the reference examples' reduced sizes: each finishes, and
+            best-of-N's batch timeline decays 4 -> 1;
 7. summary — a JSON line of every kernel, then {"ok": true, ...}.
 
 `--only` runs the card and build phases and then the named ones, and
@@ -248,7 +280,7 @@ from repro_torch.core.planner import (  # noqa: E402
     profile_activations, profile_ffn_inputs)
 from repro_torch.data.pipeline import (  # noqa: E402
     DataConfig, SyntheticTokens, shard_batch)
-from repro_torch.kernels import build as kbuild, ops  # noqa: E402
+from repro_torch.kernels import build as kbuild, ops, registry  # noqa: E402
 from repro_torch.core.sparse_ffn import (  # noqa: E402
     _apply_bundle, ffn_dense, ffn_hybrid)
 from repro_torch.kernels.ref import (  # noqa: E402
@@ -264,7 +296,8 @@ from repro_torch.train.steps import (  # noqa: E402
 from repro_torch.bridge import (  # noqa: E402
     gather_params, load_checkpoint, params_from_numpy, params_to_numpy)
 from repro_torch.checkpoint.ckpt import save_checkpoint  # noqa: E402
-from repro_torch.models.modules import activation_fn  # noqa: E402
+from repro_torch.models.modules import (  # noqa: E402
+    activation_fn, dtype_of, rms_norm)
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 from repro_torch.quant.storage import quantize_bundles  # noqa: E402
 from repro_torch.serving.families import serving_family  # noqa: E402
@@ -2534,20 +2567,22 @@ def tp_same_x(cfg, model, run):
     return near_at
 
 
-def tp_rank_kernel(cfg, model, plan, shard, xs):
-    """This rank's fused_cold_ffn on layer 0's g_loc groups and rows of x
-    from its serve, at each B of TP_BATCHES under the bucket's plan,
-    against its plain version (hold_kernel; relu2 with its rounding
-    allowance); then its time per call (eager and in a
-    CUDA graph), the plain version's and the bound. The ranks time in
-    turn, the others waiting at a barrier, so no two share the card."""
+def tp_rank_kernel(cfg, ffn, plan_for, shard, xs, rounding=None):
+    """This rank's fused_cold_ffn on the FFN module `ffn`'s (layer 0's)
+    g_loc groups and rows of x from its serve or decode, at each B of
+    TP_BATCHES under the plan `plan_for(B)`, against its plain version
+    (hold_kernel; with the rounding allowance for relu2, or as
+    `rounding` says); then its time per call (eager and in a CUDA
+    graph), the plain version's and the bound. The ranks time in turn,
+    the others waiting at a barrier, so no two share the card."""
     from repro_torch.parallel import cold_range
-    ffn = model.layers[0].ffn
     _, R, D = ffn.w.shape
     mode = cfg.sparse_ffn.mode
+    if rounding is None:
+        rounding = cfg.activation == "relu2"
     out, calls = {}, {}
     for B in TP_BATCHES:
-        p = plan.plan_for_batch(B)
+        p = plan_for(B)
         sl = ffn.rows.local(*cold_range(p, cfg.d_ff, shard.rank,
                                         shard.size))
         g_loc, cs, kc = p.groups // shard.size, p.cluster_size, \
@@ -2561,7 +2596,7 @@ def tp_rank_kernel(cfg, model, plan, shard, xs):
         # relu2 on random weights: |y| up to 1e4 from sums that cancel,
         # held as phase plan holds bamboo (plus `rounding_allowance`)
         err = hold_kernel(name, x, wc, A, Bp, mask, cfg.activation, mode, kc,
-                          rounding=cfg.activation == "relu2")
+                          rounding=rounding)
         s = dict(D=D, r=A.shape[1], cs=cs, G=g_loc, nc_g=wc.shape[1], R=R,
                  kc=kc)
         out[B] = dict(max_abs_err=err, shape=s, g_loc=g_loc)
@@ -2627,7 +2662,8 @@ def tp_dense(world, groups, arch, layers, dtype, sizes, kernel=False):
             run["same_x_s"] = time.perf_counter() - t0
             if kernel and n > 1:
                 xs0 = torch.cat([x for l, x, _ in run["xs"] if l == 0])
-                run["kernel"] = tp_rank_kernel(cfg, local, plan, grp, xs0)
+                run["kernel"] = tp_rank_kernel(cfg, local.layers[0].ffn,
+                                               plan.plan_for_batch, grp, xs0)
         if n == 1:
             run["share"] = tp_ffn_share(cfg, plan, sizes[1:])
         if n == 1 and exact:
@@ -2984,19 +3020,20 @@ def on_card(module):
                              f"card")
 
 
-def grad_error(want: dict, got: dict) -> float:
-    """The worst leaf's max |got - want| over its max |want|, over the
-    leaves of two gradient trees of one layout."""
-    worst = 0.0
+def worst_leaf(want: dict, got: dict, path: str = "") -> tuple:
+    """(max |got - want| over max |want| of the worst leaf, its path) of
+    two gradient trees of one layout."""
+    worst = (0.0, "")
     for k, w in want.items():
         if isinstance(w, dict):
-            worst = max(worst, grad_error(w, got[k]))
+            worst = max(worst, worst_leaf(w, got[k], f"{path}{k}."))
             continue
         if w.shape != got[k].shape:
-            raise AssertionError(f"gradient {k}: shape {got[k].shape}, "
-                                 f"one rank's {w.shape}")
-        worst = max(worst, float(np.abs(got[k] - w).max())
-                    / max(float(np.abs(w).max()), 1e-30))
+            raise AssertionError(f"gradient {path}{k}: shape "
+                                 f"{got[k].shape}, one rank's {w.shape}")
+        worst = max(worst, (float(np.abs(got[k] - w).max())
+                            / max(float(np.abs(w).max()), 1e-30),
+                            path + k))
     return worst
 
 
@@ -3043,7 +3080,7 @@ def tpt_parity(world, rows, cols):
     out["loss"] = float(loss)
     if world.rank == 0:
         rel = abs(out["loss"] - want[0]) / abs(want[0])
-        worst = grad_error(want[1], tree.tree)
+        worst = worst_leaf(want[1], tree.tree)[0]
         if rel > TRAIN_LOSS_REL or worst > TRAIN_GRAD_REL:
             raise AssertionError(f"dp x tp train step: loss {out['loss']} "
                                  f"against {want[0]} ({rel:.3e}), worst "
@@ -3053,13 +3090,17 @@ def tpt_parity(world, rows, cols):
     return out
 
 
-def tpt_run(cfg, shard=None, data=None):
-    """launch.train's loop (`run`) at TRAIN_BATCH x TRAIN_SEQ, lr
-    TRAIN_LR, TPT_STEPS steps on the card, each step's synchronized wall
+def tpt_run(cfg, shard=None, data=None, lr=None, batch=None, seq=None):
+    """launch.train's loop (`run`) at batch x seq (default TRAIN_BATCH x
+    TRAIN_SEQ), lr (default TRAIN_LR), TPT_STEPS steps on the card, each
+    step's synchronized wall
     and collectives recorded by a spy on make_train_step; the kernel
     launches of the steps and the peak device memory."""
     import repro_torch.launch.train as ltrain
     inner, walls, colls = ltrain.make_train_step, [], []
+    lr, batch, seq = (TRAIN_LR if lr is None else lr,
+                      TRAIN_BATCH if batch is None else batch,
+                      TRAIN_SEQ if seq is None else seq)
 
     def timed_step(model, opt, **kw):
         step = inner(model, opt, **kw)
@@ -3080,8 +3121,8 @@ def tpt_run(cfg, shard=None, data=None):
     ltrain.make_train_step = timed_step
     try:
         model, losses = ltrain.run(cfg, torch.device("cuda"),
-                                   steps=TPT_STEPS, batch_size=TRAIN_BATCH,
-                                   seq_len=TRAIN_SEQ, lr=TRAIN_LR,
+                                   steps=TPT_STEPS, batch_size=batch,
+                                   seq_len=seq, lr=lr,
                                    log_every=0, seed=0, shard=shard,
                                    data=data)
     finally:
@@ -3993,9 +4034,593 @@ def phase_families(card):
     return out
 
 
+# --------------------------------------------------------- phase famtp ----
+
+# the ssm, hybrid and encdec families over ranks sharing the card (as phase
+# tp), bf16 unless marked; widths whole, depths cut to keep the phase
+# within 150 s: recurrentgemma-9b to 6 of 38 layers (two whole rec, rec,
+# attn groups), seamless-m4t-large-v2 to 4 encoder and 4 decoder layers
+# of 24 each; mamba2-130m whole (24 layers)
+FAMTP_WORLD = 4
+FAMTP_MAMBA, FAMTP_MAMBA_TPS = "mamba2-130m", (2, 4)
+# (arch, layers kept, tp sizes, dtype); the plan's groups=4 divide every
+# size. fp32 holds tokens, logits and ids to tp=1's (cut further: one
+# rec, rec, attn group; 2 + 2 layers); bf16 holds each layer on the same
+# x and times the per-rank kernel
+FAMTP_SERVE = (("recurrentgemma-9b", 3, (4,), "float32"),
+               ("recurrentgemma-9b", 6, (4,), "bfloat16"),
+               ("seamless-m4t-large-v2", 2, (2, 4), "float32"),
+               ("seamless-m4t-large-v2", 4, (2, 4), "bfloat16"))
+FAMTP_GROUPS = 4
+FAMTP_PROMPT, FAMTP_B = 64, 2     # 2 rows x 16 steps: 32 rows of x
+FAMTP_LOGIT_REL = 1e-5            # fp32 logits over max |logit|
+FAMTP_BF16_REL = 1e-2             # bf16 outputs over max |y| on the same x
+# the fp32 step: the loss relative; each gathered gradient leaf over its
+# max |g|, the golden recipe's bar (on the card the rank's slices take
+# other GEMM kernels than one rank's: 1.57e-05 at conv_w over 24 layers)
+FAMTP_TRAIN_LOSS_REL, FAMTP_TRAIN_GRAD_REL = 1e-6, TRAIN_GRAD_REL
+FAMTP_TRAIN_STEPS_REL = 1e-2      # each bf16 step's loss against one rank
+# launch.train's own recipe (its train() and CLI defaults)
+FAMTP_RECIPE = dict(lr=1e-3, batch=8, seq=128)
+
+
+def famtp_plan(cfg):
+    """make_plan of the config's sparse FFN under backend "pallas" with
+    groups=FAMTP_GROUPS (hot 0.4, cold-active 0.2, clusters of 128)."""
+    s = cfg.sparse_ffn
+    return make_plan(cfg.d_ff, s.hot_ratio, s.cold_active_ratio,
+                     s.cluster_size, groups=FAMTP_GROUPS, backend="pallas")
+
+
+def famtp_decode(model, plan, record=False):
+    """Prefill FAMTP_PROMPT tokens of FAMTP_B rows, then FAMILY_STEPS
+    greedy steps under `plan` on this rank: the prefill's and every
+    step's logits over the vocabulary (on the host, fp32), the tokens, each step's gathered
+    cluster ids (L, G, kc), with `record` each (step, FFN layer)'s input
+    rows, every kernel's launches in the decode (counted from 0 after
+    the prefill), the walls and collectives per step."""
+    from repro_torch.models import blocks
+    cfg = model.cfg
+    batch = family_batch(cfg, FAMTP_B, FAMTP_PROMPT)
+    logits, cache = model.prefill(model.module, batch,
+                                  FAMTP_PROMPT + FAMILY_STEPS)
+    V = cfg.vocab_size          # past it the padding's -1e30
+    out = dict(logits=[logits[..., :V].float().cpu()], toks=[], ids=[],
+               xs=[], walls=[], coll=[])
+    layer_of = {id(f.w): i for i, f in enumerate(decode_ffn(model))}
+    inner = blocks.ffn_apply
+
+    def spy(w, pred, x, act, scfg, p, *a, **k):
+        if record and p is not None:
+            out["xs"].append((layer_of[id(w)],
+                              x.detach().reshape(-1, x.shape[-1]).clone()))
+        return inner(w, pred, x, act, scfg, p, *a, **k)
+    ops.set_launch_counts({k: 0 for k in ops.launch_counts()})
+    blocks.ffn_apply = spy
+    try:
+        for _ in range(FAMILY_STEPS):
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            out["toks"].append(tok[:, 0].tolist())
+            c0, s0 = TP_COLL["calls"], TP_COLL["seconds"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if cfg.family == "ssm":
+                logits, cache = model.decode_step(model.module, tok, cache,
+                                                  plan)
+            else:
+                logits, cache, ids = model.decode_step(
+                    model.module, tok, cache, plan, collect_indices=True)
+                out["ids"].append(ids.cpu().numpy())
+            torch.cuda.synchronize()
+            out["walls"].append(time.perf_counter() - t0)
+            out["coll"].append((TP_COLL["calls"] - c0,
+                                TP_COLL["seconds"] - s0))
+            out["logits"].append(logits[..., :V].float().cpu())
+    finally:
+        blocks.ffn_apply = inner
+    out["launches"] = ops.launch_counts()
+    out["weight_bytes"] = sum(p.numel() * p.element_size()
+                              for p in model.module.parameters())
+    return out
+
+
+def famtp_summary(r) -> dict:
+    """The per-step numbers of a famtp_decode run."""
+    c, secs = np.array(r["coll"], dtype=float).T
+    return dict(wall_ms=float(np.median(r["walls"][1:]) * 1e3),
+                coll_per_step=float(np.median(c[1:])),
+                coll_ms_per_step=float(np.median(secs[1:]) * 1e3),
+                launches=r["launches"]["fused_cold_ffn"],
+                weight_bytes=r["weight_bytes"])
+
+
+def famtp_rel(a, b) -> float:
+    """max |a - b| over max |b| (b the one-rank value)."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def famtp_mamba(world, groups):
+    """mamba2-130m whole at tp 2 and 4 against tp=1 (every rank runs tp=1
+    itself, from the same seed): in fp32 the greedy tokens identical and
+    every logit within FAMTP_LOGIT_REL of max |logit|; in bf16 each
+    layer's prefill output on the same x within FAMTP_BF16_REL of max |y|
+    and the decode's token agreement counted; no kernel launch."""
+    from repro_torch.models import dense as mdense, ssm as mssm
+    out, t0 = {}, time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_config(FAMTP_MAMBA).replace(param_dtype=dtype,
+                                              compute_dtype=dtype)
+        whole = build_model(cfg, "cuda", seed=0)
+        one = famtp_decode(whole, None)
+        xs = []
+        if dtype == "bfloat16":
+            with torch.no_grad():
+                x = mdense.embed_tokens(whole.module, family_batch(
+                    cfg, FAMTP_B, FAMTP_PROMPT)["tokens"])
+                for lp in whole.module.layers:
+                    y = mssm._layer_full(lp, x, cfg)[0]
+                    xs.append((x, y))
+                    x = y
+        for n in FAMTP_MAMBA_TPS:
+            torch.distributed.barrier(group=world.group)
+            g = groups[n]
+            if not g.member:
+                continue
+            local = build_model(cfg, "cuda", seed=0, shard=g)
+            on_card(local.module)
+            r = famtp_decode(local, None)
+            if any(r["launches"].values()):
+                raise AssertionError(f"mamba2 tp={n}: kernel launches "
+                                     f"{r['launches']}")
+            res = famtp_summary(r)
+            if dtype == "float32":
+                if r["toks"] != one["toks"]:
+                    raise AssertionError(f"mamba2 fp32 tp={n} rank "
+                                         f"{g.rank}: tokens differ from "
+                                         f"tp=1's")
+                res["logit_rel"] = max(famtp_rel(a, b) for a, b in
+                                       zip(r["logits"], one["logits"]))
+                if res["logit_rel"] > FAMTP_LOGIT_REL:
+                    raise AssertionError(f"mamba2 fp32 tp={n}: logits "
+                                         f"{res['logit_rel']:.3e} of max "
+                                         f"|logit| from tp=1's")
+            else:
+                with torch.no_grad():
+                    res["layer_rel"] = max(famtp_rel(
+                        mssm._layer_full(lp, x, cfg, shard=g)[0].float(),
+                        y.float()) for lp, (x, y) in
+                        zip(local.module.layers, xs))
+                if res["layer_rel"] > FAMTP_BF16_REL:
+                    raise AssertionError(f"mamba2 bf16 tp={n}: a layer's "
+                                         f"output on the same x is "
+                                         f"{res['layer_rel']:.3e} of max "
+                                         f"|y| from tp=1's")
+                res["agree"] = float(np.mean(np.array(r["toks"]) ==
+                                             np.array(one["toks"])))
+            out[dtype, n] = res
+            del local
+        out[dtype, 1] = famtp_summary(one)
+        out["layers"] = cfg.num_layers
+        del whole, xs
+        free_cuda()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def famtp_same_x(cfg, whole, plan, run):
+    """Every (step, FFN layer) of `run`: the gathered ids against the
+    unsharded selection (the plain version over the whole model's layer)
+    on the same x, identical but for fp64-confirmed near ties. Returns
+    the count of near ties."""
+    ffns, near = decode_ffn(whole), 0
+    L = len(ffns)
+    for i, (l, x) in enumerate(run["xs"]):
+        wc, A, Bp = layer_operands(ffns[l], plan)
+        mask = torch.ones(x.shape[0], device=x.device)
+        ids = torch.from_numpy(run["ids"][i // L][l]).to(x.device)
+        _, ir = fused_cold_ffn_ref(x, wc, A, Bp, mask,
+                                   activation=cfg.activation,
+                                   cats=cfg.sparse_ffn.mode == "cats",
+                                   kc=plan.clusters_per_group)
+        nr, real = pick_disagreements(ids, ir, x, wc, A, Bp, mask)
+        if real:
+            raise AssertionError(f"{cfg.name} step {i // L} FFN layer {l}: "
+                                 f"the group picked {real} against the "
+                                 f"unsharded selection on the same x")
+        near += bool(nr)
+    return near
+
+
+def famtp_exact(arch, n, r, one) -> dict:
+    """Hold an fp32 decode at tp=n to tp=1's: tokens and every step's
+    gathered ids identical, every logit within FAMTP_LOGIT_REL of max
+    |logit|."""
+    rel = max(famtp_rel(a, b) for a, b in zip(r["logits"], one["logits"]))
+    same_ids = all(np.array_equal(a, b) for a, b in zip(r["ids"],
+                                                        one["ids"]))
+    if r["toks"] != one["toks"] or not same_ids or rel > FAMTP_LOGIT_REL:
+        raise AssertionError(f"{arch} fp32 tp={n}: tokens equal "
+                             f"{r['toks'] == one['toks']}, ids equal "
+                             f"{same_ids}, logits {rel:.3e} of max |logit| "
+                             f"from tp=1's")
+    return dict(logit_rel=rel, ids_equal_steps=len(r["ids"]))
+
+
+@torch.no_grad()
+def famtp_layers(whole, local, g) -> float:
+    """Every layer of a hybrid or encdec prefill on the same x: the rank's
+    slice over `g` against the whole model's layer, the x of each layer
+    the whole model's chain (the encdec's decoder reads the whole
+    encoder's memory, each model through its own cross K/V); the worst
+    max |y - y_whole| over max |y_whole|."""
+    from repro_torch.models import dense as mdense, encdec as menc, \
+        rglru as mrg
+    cfg = whole.cfg
+    batch = family_batch(cfg, FAMTP_B, FAMTP_PROMPT)
+    S, worst = batch["tokens"].shape[1], 0.0
+
+    def hold(y, yl):
+        nonlocal worst
+        worst = max(worst, famtp_rel(yl.float(), y.float()))
+        return y
+    if cfg.family == "hybrid":
+        x = mdense.embed_tokens(whole.module, batch["tokens"])
+        angles = mrg._angles(cfg, torch.arange(S, device=x.device))
+        for lw, ll in zip(whole.module.layers, local.module.layers):
+            x = hold(mrg._full_layer(lw, x, cfg, angles, None)[0],
+                     mrg._full_layer(ll, x, cfg, angles, None, g)[0])
+        return worst
+    x = batch["frames"].to(dtype_of(cfg.compute_dtype))
+    angles = menc._angles(cfg, x.shape[1], x.device)
+    for lw, ll in zip(whole.module.enc_layers, local.module.enc_layers):
+        x = hold(menc._enc_layer(lw, x, cfg, angles),
+                 menc._enc_layer(ll, x, cfg, angles, g))
+    memory = rms_norm(x, whole.module.enc_norm, cfg.norm_eps)
+    mk, mv = menc.cross_memory(whole.module, memory)
+    lk, lv = menc.cross_memory(local.module, memory, g)
+    x = mdense.embed_tokens(whole.module, batch["tokens"])
+    angles = menc._angles(cfg, S, x.device)
+    for l, (lw, ll) in enumerate(zip(whole.module.dec_layers,
+                                     local.module.dec_layers)):
+        x = hold(menc._dec_layer_full(lw, x, cfg, angles, mk[l], mv[l],
+                                      None)[0],
+                 menc._dec_layer_full(ll, x, cfg, angles, lk[l], lv[l], None,
+                                      g)[0])
+    return worst
+
+
+def famtp_serve(world, groups, arch, layers, sizes, dtype):
+    """A family with an FFN at full width, cut to `layers`, in `dtype`,
+    under famtp_plan: tp=1 on rank 0, then each tp of `sizes` on ranks
+    [0, n): fused_cold_ffn launched once per FFN layer and step on every
+    rank (and no other kernel). In fp32 the greedy tokens and every
+    step's gathered ids identical to tp=1's and every logit within
+    FAMTP_LOGIT_REL of max |logit|. In bf16 every layer's prefill output
+    on the same x within FAMTP_BF16_REL of max |y| of the whole model's
+    (famtp_layers), the prefill logits' distance and the greedy tokens'
+    agreement with tp=1 reported, every
+    (step, layer)'s gathered ids against the unsharded selection on the
+    same x (rank 0), then layer 0's per-rank kernel against its plain
+    version at B 1/4/32 and timed in a CUDA graph beside its bound."""
+    from repro_torch.bridge import shard_model
+    cfg = family_cfg(arch, layers).replace(param_dtype=dtype,
+                                           compute_dtype=dtype)
+    exact = dtype == "float32"
+    plan = famtp_plan(cfg)
+    t0 = time.perf_counter()
+    whole = build_model(cfg, "cuda", seed=0) \
+        if groups[max(sizes)].member else None
+    n_ffn = len(decode_ffn(whole)) if whole is not None else 0
+    out = {}
+    if world.rank == 0:
+        one = famtp_decode(whole, plan)
+        out[1] = famtp_summary(one)
+    for n in sizes:
+        torch.distributed.barrier(group=world.group)
+        g = groups[n]
+        if not g.member:
+            continue
+        free_cuda()
+        local = wrap(shard_model(whole.module, plan, g, "cuda"), g)
+        on_card(local.module)
+        r = famtp_decode(local, plan, record=True)
+        launches = r["launches"].pop("fused_cold_ffn")
+        if launches != n_ffn * FAMILY_STEPS or any(r["launches"].values()):
+            raise AssertionError(f"{arch} tp={n} rank {g.rank}: "
+                                 f"fused_cold_ffn launched {launches} times "
+                                 f"in {FAMILY_STEPS} steps of {n_ffn} FFN "
+                                 f"layers; other kernels {r['launches']}")
+        r["launches"]["fused_cold_ffn"] = launches
+        res = famtp_summary(r)
+        res["ffn_rows"] = len(decode_ffn(local)[0].rows.ids)
+        if exact:
+            if g.rank == 0:
+                res.update(famtp_exact(arch, n, r, one))
+            out[n] = res
+            del local, r
+            continue
+        res["layer_rel"] = famtp_layers(whole, local, g)
+        if res["layer_rel"] > FAMTP_BF16_REL:
+            raise AssertionError(f"{arch} tp={n} rank {g.rank}: a layer's "
+                                 f"prefill output on the same x is "
+                                 f"{res['layer_rel']:.3e} of max |y| from "
+                                 f"tp=1's")
+        if g.rank == 0:
+            res["prefill_rel"] = famtp_rel(r["logits"][0], one["logits"][0])
+            res["agree"] = float(np.mean(np.array(r["toks"]) ==
+                                         np.array(one["toks"])))
+            res["ids_equal_steps"] = int(sum(np.array_equal(a, b) for a, b
+                                             in zip(r["ids"], one["ids"])))
+            t1 = time.perf_counter()
+            res["near"] = famtp_same_x(cfg, whole, plan, r)
+            res["same_x_s"] = time.perf_counter() - t1
+        # the FFN input is the same on every rank: each holds its own
+        # slice on its own rows of x
+        xs0 = torch.cat([x for l, x in r["xs"] if l == 0])
+        res["kernel"] = tp_rank_kernel(cfg, decode_ffn(local)[0],
+                                       lambda B: plan, g, xs0, rounding=True)
+        out[n] = res
+        del local, r
+    out["seconds"] = time.perf_counter() - t0
+    del whole
+    free_cuda()
+    return cfg, out
+
+
+def famtp_train(world, rows, cols):
+    """mamba2-130m whole at dp=2 x tp=2 against one rank (world rank 0,
+    the others waiting), the same seeded weights and batches: one fp32
+    train step (loss within FAMTP_TRAIN_LOSS_REL relative, every gathered
+    gradient leaf within FAMTP_TRAIN_GRAD_REL of its max |g|; the
+    one-rank step's own fp32 noise, its gradients on the batch with the
+    rows reversed, is reported beside it), then
+    TPT_STEPS bf16 steps of launch.train's loop at its own recipe
+    (FAMTP_RECIPE; tpt_run: each loss
+    within FAMTP_TRAIN_STEPS_REL relative, the last below the first, no
+    kernel launch)."""
+    t0 = time.perf_counter()
+    cfg32 = get_config(FAMTP_MAMBA).replace(param_dtype="float32",
+                                            compute_dtype="float32")
+    batch = SyntheticTokens(DataConfig(cfg32.vocab_size, TRAIN_SEQ,
+                                       TRAIN_BATCH, seed=0)).batch()
+    out = {}
+    if world.rank == 0:
+        one = build_model(cfg32, "cuda", seed=0)
+        loss, grads = loss_and_grads(one, one.params(),
+                                     shard_batch(batch, "cuda"))
+        want = (float(loss), params_to_numpy(one.module, grads).tree)
+        # the one-rank step's own fp32 noise: the same batch, its rows
+        # reversed, sums the gradients in another order
+        flip = {k: np.ascontiguousarray(v[::-1]) for k, v in batch.items()}
+        _, grads = loss_and_grads(one, one.params(),
+                                  shard_batch(flip, "cuda"))
+        noise = worst_leaf(want[1], params_to_numpy(one.module, grads).tree)
+        del one, grads
+    torch.distributed.barrier(group=world.group)
+    model = build_model(cfg32, "cuda", seed=0, shard=rows)
+    on_card(model.module)
+    loss, grads = loss_and_grads(model, model.params(), shard_batch(
+        batch, "cuda", cols.rank, TPT_DP), cols)
+    tree = gather_params(model.module, rows, values=grads) \
+        if cols.rank == 0 else None
+    out["loss"] = float(loss)
+    if world.rank == 0:
+        rel = abs(out["loss"] - want[0]) / abs(want[0])
+        worst = worst_leaf(want[1], tree.tree)
+        bar = FAMTP_TRAIN_GRAD_REL
+        if rel > FAMTP_TRAIN_LOSS_REL or worst[0] > bar:
+            raise AssertionError(f"mamba2 dp x tp fp32 step: loss "
+                                 f"{out['loss']} against {want[0]} "
+                                 f"({rel:.3e}), worst gradient {worst[0]:.3e} "
+                                 f"of its max ({worst[1]}), above "
+                                 f"{bar:.3e}; one rank's own noise "
+                                 f"{noise[0]:.3e} ({noise[1]})")
+        out.update(loss_one=want[0], loss_rel=rel, grad_worst_rel=worst[0],
+                   grad_worst_leaf=worst[1], noise_rel=noise[0],
+                   noise_leaf=noise[1], grad_bar=bar)
+    del model, grads, tree
+    free_cuda()
+    cfg = get_config(FAMTP_MAMBA)
+    base = None
+    if world.rank == 0:
+        m, base = tpt_run(cfg, **FAMTP_RECIPE)
+        del m
+    torch.distributed.barrier(group=world.group)
+    m, run = tpt_run(cfg, rows, cols, **FAMTP_RECIPE)
+    del m
+    if run["launches"]:
+        raise AssertionError(f"rank {world.rank}: the mamba2 train steps "
+                             f"launched {run['launches']} kernels")
+    if world.rank == 0:
+        losses, ref = np.array(run["losses"]), np.array(base["losses"])
+        rel = np.abs(losses - ref) / np.abs(ref)
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+                and (rel <= FAMTP_TRAIN_STEPS_REL).all()):
+            raise AssertionError(f"mamba2 dp x tp losses {losses} against "
+                                 f"one rank's {ref}")
+        run.update(one=base, loss_rel=rel.tolist())
+    out["steps"] = run
+    out["seconds"] = time.perf_counter() - t0
+    free_cuda()
+    return out
+
+
+def famtp_rank(world):
+    """Every case of phase famtp on this rank of the gloo world (all
+    ranks on cuda:0); its results for the parent to print."""
+    from repro_torch.parallel import grid, replica_groups
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spy_collectives()
+    t0 = time.perf_counter()
+    a = torch.ones((8, 8), device=world.device)
+    float((a @ a).sum())
+    groups = {n: replica_groups(world, FAMTP_WORLD // n, n)[0]
+              for n in (2, 4)}
+    out = {"mamba2": famtp_mamba(world, groups)}
+    for arch, layers, sizes, dtype in FAMTP_SERVE:
+        torch.distributed.barrier(group=world.group)
+        out[arch, dtype] = famtp_serve(world, groups, arch, layers, sizes,
+                                       dtype)
+    torch.distributed.barrier(group=world.group)
+    rows, cols = grid(world, TPT_DP, TPT_TP)
+    out["train"] = famtp_train(world, rows, cols)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_famtp(card):
+    """The ssm, hybrid and encdec families over gloo ranks sharing the
+    card (as phase tp): the ranks hold what they can alone and this
+    process prints the per-rank numbers. A failing rank fails the
+    phase."""
+    from repro_torch.parallel import spawn
+    print(f"== phase famtp: {FAMTP_WORLD} gloo ranks sharing the card "
+          f"(the families over tp ranks; mamba2 training at dp={TPT_DP} x "
+          f"tp={TPT_TP}; {card})")
+    free_cuda()
+    t0 = time.perf_counter()
+    ranks = spawn(famtp_rank, FAMTP_WORLD, device="cuda", threads=2,
+                  timeout=600)
+    out = {"seconds": time.perf_counter() - t0,
+           "rank_seconds": [r["seconds"] for r in ranks]}
+    m = [r["mamba2"] for r in ranks]
+    for dtype in ("float32", "bfloat16"):
+        one = m[0][dtype, 1]
+        print(f"  mamba2-130m whole ({m[0]['layers']} layers, {dtype}), "
+              f"prefill "
+              f"{FAMTP_PROMPT} + {FAMILY_STEPS} greedy steps at B "
+              f"{FAMTP_B}: tp=1 {one['wall_ms']:.2f} ms/step")
+        for n in FAMTP_MAMBA_TPS:
+            rs = [x[dtype, n] for x in m[:n]]
+            what = (f"tokens identical to tp=1's, logits within "
+                    f"{max(r['logit_rel'] for r in rs):.2e} of max |logit|"
+                    if dtype == "float32" else
+                    f"each layer's output on the same x within "
+                    f"{max(r['layer_rel'] for r in rs):.2e} of max |y|, "
+                    f"tokens agreeing {rs[0]['agree']:.0%}")
+            print(f"    tp={n}: {what}; no kernel launch; per rank wall "
+                  + ", ".join(f"{r['wall_ms']:.2f}" for r in rs)
+                  + " ms/step, collectives "
+                  + ", ".join(f"{r['coll_per_step']:.0f} in "
+                              f"{r['coll_ms_per_step']:.2f} ms" for r in rs)
+                  + ", weights "
+                  + ", ".join(f"{r['weight_bytes'] / 2**20:.1f}" for r in rs)
+                  + " MiB")
+        out[f"mamba2 {dtype}"] = {n: [x[dtype, n] for x in m[:n]]
+                                  for n in (1,) + FAMTP_MAMBA_TPS}
+    for arch, layers, sizes, dtype in FAMTP_SERVE:
+        cfg, _ = ranks[0][arch, dtype]
+        one = ranks[0][arch, dtype][1][1]
+        print(f"  {arch} (D {cfg.d_model}, {cfg.activation}, "
+              f"{layers} layers{' + encoder' if cfg.num_encoder_layers else ''}"
+              f", {dtype}), plan groups={FAMTP_GROUPS} (pallas): tp=1 "
+              f"{one['wall_ms']:.2f} ms/step, {one['launches']} launches")
+        res = {1: one}
+        for n in sizes:
+            rs = [r[arch, dtype][1][n] for r in ranks[:n]]
+            r0 = rs[0]
+            if dtype == "float32":
+                print(f"    tp={n}: tokens and the gathered ids of all "
+                      f"{r0['ids_equal_steps']} steps identical to tp=1's, "
+                      f"logits within {r0['logit_rel']:.2e} of max |logit|; "
+                      f"fused_cold_ffn {r0['launches'] // FAMILY_STEPS} "
+                      f"launches per step on every rank; per rank wall "
+                      + ", ".join(f"{r['wall_ms']:.2f}" for r in rs)
+                      + " ms/step")
+                res[n] = rs
+                continue
+            print(f"    tp={n}: fused_cold_ffn {r0['launches'] // FAMILY_STEPS}"
+                  f" launches per step on every rank; each layer's prefill "
+                  f"output on the same x within "
+                  f"{max(r['layer_rel'] for r in rs):.2e} of max |y|; the "
+                  f"prefill logits {r0['prefill_rel']:.2e} of max from "
+                  f"tp=1's (bf16 over {layers} layers); tokens agreeing "
+                  f"{r0['agree']:.0%}, gathered ids equal to tp=1's in "
+                  f"{r0['ids_equal_steps']} of {FAMILY_STEPS} steps and to "
+                  f"the unsharded selection on the same x but for "
+                  f"{r0['near']} near ties; per rank wall "
+                  + ", ".join(f"{r['wall_ms']:.2f}" for r in rs)
+                  + " ms/step, collectives "
+                  + ", ".join(f"{r['coll_per_step']:.0f} in "
+                              f"{r['coll_ms_per_step']:.2f} ms" for r in rs)
+                  + f", FFN rows {r0['ffn_rows']} of {cfg.d_ff}, weights "
+                  + ", ".join(f"{r['weight_bytes'] / 2**20:.0f}" for r in rs)
+                  + " MiB")
+            for i, r in enumerate(rs):
+                print(f"      rank {i} layer 0 kernel: " + "; ".join(
+                    f"B={B} {t['graph_ms'] * 1e3:.2f} us in a graph "
+                    f"({t['ms'] * 1e3:.2f} eager, plain "
+                    f"{t['plain_ms'] * 1e3:.2f}, bound "
+                    f"{t['bound_ms'] * 1e3:.3f} us, {t['bound_by']}; err "
+                    f"{t['max_abs_err']:.2e})"
+                    for B, t in r["kernel"].items()))
+            res[n] = rs
+        out[f"{arch} {dtype}"] = res
+    t = [r["train"] for r in ranks]
+    st = [x["steps"] for x in t]
+    print(f"  mamba2-130m training, dp={TPT_DP} x tp={TPT_TP} against one "
+          f"rank: fp32 step loss {t[0]['loss']:.6f} ({t[0]['loss_rel']:.2e} "
+          f"relative), worst gradient {t[0]['grad_worst_rel']:.2e} of its "
+          f"max ({t[0]['grad_worst_leaf']}; one rank against itself on the "
+          f"reversed batch: {t[0]['noise_rel']:.2e}, {t[0]['noise_leaf']}; "
+          f"bar {t[0]['grad_bar']:.2e}); {TPT_STEPS} bf16 steps of launch.train's loop, losses "
+          f"{st[0]['losses'][0]:.4f} -> {st[0]['losses'][-1]:.4f} (worst "
+          f"{max(st[0]['loss_rel']):.2e} relative to one rank's); one rank "
+          f"{st[0]['one']['wall_ms']:.1f} ms/step; per rank wall "
+          + ", ".join(f"{s['wall_ms']:.1f}" for s in st)
+          + " ms/step, collectives "
+          + ", ".join(f"{s['coll_per_step']:.0f} in "
+                      f"{s['coll_ms_per_step']:.1f} ms" for s in st)
+          + ", weights "
+          + ", ".join(f"{s['weight_bytes'] / 2**20:.1f}" for s in st)
+          + " MiB")
+    out["train"] = dict(parity=t[0], steps=st)
+    print(f"  phase famtp ranks {out['seconds']:.1f} s (rank 0's cases: "
+          f"mamba2 {ranks[0]['mamba2']['seconds']:.1f} s, "
+          + ", ".join(f"{a} {d} {ranks[0][a, d][1]['seconds']:.1f} s"
+                      for a, _, _, d in FAMTP_SERVE)
+          + f", training {t[0]['seconds']:.1f} s)")
+    return out
+
+
+# ------------------------------------------------------- phase examples ----
+
+EXAMPLES = ("quickstart", "best_of_n", "offloaded_serving",
+            "plan_and_inspect")
+
+
+def phase_examples():
+    """The four examples of examples_torch/ on the card at the reference
+    examples' reduced sizes: each main() finishes, and best-of-N's batch
+    timeline decays 4 -> 1."""
+    import importlib.util
+    root = Path(__file__).resolve().parent / "examples_torch"
+    out = {}
+    for name in EXAMPLES:
+        print(f"== phase examples: examples_torch/{name}.py")
+        spec = importlib.util.spec_from_file_location(
+            f"examples_torch_{name}", root / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t0 = time.perf_counter()
+        res = mod.main()
+        torch.cuda.synchronize()
+        out[name] = dict(seconds=time.perf_counter() - t0)
+        if name == "best_of_n":
+            b = res["batches"]
+            if b[0] != 4 or b[-1] != 1 or any(
+                    x < y for x, y in zip(b, b[1:])):
+                raise AssertionError(f"best-of-N batch timeline {b} does "
+                                     f"not decay 4 -> 1")
+            out[name].update(batches=b, switches=res["switches"])
+        print(f"  [{name}: {out[name]['seconds']:.1f} s]")
+        free_cuda()
+    return out
+
+
 PHASES = ("kernel", "quant", "times", "gather", "serve", "parity", "api",
           "fleet", "archs", "vlm", "moe", "plan", "tp", "tptrain",
-          "train", "families")
+          "train", "families", "famtp", "examples")
 
 
 def main(argv=None):
@@ -4061,20 +4686,21 @@ def main(argv=None):
     tpt_out = timed("tptrain", phase_tptrain, card)
     train_out = timed("train", phase_train, card)
     fam_out = timed("families", phase_families, card)
+    famtp_out = timed("famtp", phase_famtp, card)
+    ex_out = timed("examples", phase_examples)
     if run != set(PHASES):
         print(f"chip_smoke: ran phases {sorted(run)} only; no summary")
         return 0
 
     print("== phase 7: summary")
-    src = "src/repro_torch/kernels/csrc/"
     shape = "B=1 D=576 r=64 cs=64 nc_g=23 R=3 kc=1 bf16"
     t1, q1 = times[("fp16", 1)], times[("int8", 1)]
     rows = [{
-        "name": "fused_cold_ffn", "route": "cuda",
-        "source": src + "fused_cold_ffn.cu",
-        "replaces": "src/repro/kernels/cluster_gather_ffn.py:275",
+        **registry.row("fused_cold_ffn"),
         "checked": True, "launches": serve["launches"] + sum(
-            v["launches"] for v in fam_out["serve"].values()),
+            v["launches"] for v in fam_out["serve"].values()) + sum(
+            famtp_out[f"{a} {d}"][n][0]["launches"]
+            for a, _, sizes, d in FAMTP_SERVE for n in sizes),
         "max_abs_err": max([max_err] + [t["max_abs_err"]
                                          for v in archs.values()
                                          for t in v["kernels"].values()]
@@ -4085,12 +4711,18 @@ def main(argv=None):
                            + [t["max_abs_err"]
                               for v in fam_out["serve"].values()
                               for t in v["kernels"].values()]
+                           + [t["max_abs_err"]
+                              for a, _, sizes, d in FAMTP_SERVE
+                              for n in sizes if d == "bfloat16"
+                              for r in famtp_out[f"{a} {d}"][n]
+                              for t in r["kernel"].values()]
                            + [r["max_abs_err"] for v in plan_out.values()
                               for r in v["rows"]]),
         "ms": t1["ms"], "plain_ms": t1["plain_ms"],
         "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
         "library_ms": None, "graph_ms": t1["graph_ms"], "shape": shape,
-        "launches_counted": "phase 4's fp16 serve and phase families' "
+        "launches_counted": "phase 4's fp16 serve, phase families' "
+                            "decode steps and phase famtp's rank 0 "
                             "decode steps",
         "subkernel_us": t1["subkernel_us"],
         "by_batch": {str(b): v for (sd, b), v in times.items()
@@ -4131,7 +4763,16 @@ def main(argv=None):
                r["launches"] for m, r in train_out["serve"].items()},
             **{f"{a} decode, {FAMILY_STEPS} steps at B "
                f"{'/'.join(map(str, FAMILY_BATCHES))} (phase families)":
-               v["launches"] for a, v in fam_out["serve"].items()}},
+               v["launches"] for a, v in fam_out["serve"].items()},
+            **{f"{a} {d} decode, {FAMILY_STEPS} steps, tp={n}, per rank "
+               f"(phase famtp)": [r["launches"]
+                                  for r in famtp_out[f"{a} {d}"][n]]
+               for a, _, sizes, d in FAMTP_SERVE for n in sizes},
+            **{f"mamba2-130m {d} decode, tp={n}, per rank (phase famtp)":
+               [r["launches"] for r in famtp_out[f"mamba2 {d}"][n]]
+               for d in ("float32", "bfloat16") for n in FAMTP_MAMBA_TPS},
+            "mamba2-130m dp=2 x tp=2 train steps, per rank (phase famtp)":
+                [r["launches"] for r in famtp_out["train"]["steps"]]},
         "by_model": {a: {"layers": v["layers"],
                          "launches_per_step": v["launches"] // v["steps"],
                          "by_batch": {str(b): t
@@ -4142,11 +4783,14 @@ def main(argv=None):
                           "by_batch": {str(b): t
                                        for b, t in v["kernels"].items()}}
                       for a, v in fam_out["serve"].items()},
+        "by_family_rank": {f"{a} tp={n}": [r["kernel"] for r in
+                                           famtp_out[f"{a} {d}"][n]]
+                           for a, _, sizes, d in FAMTP_SERVE for n in sizes
+                           if d == "bfloat16"},
         "fleet": fleet, "moe": moe_out, "plan": plan_out, "tp": tp_out,
-        "tptrain": tpt_out, "train": train_out, "families": fam_out}, {
-        "name": "fused_cold_ffn (quant mode)", "route": "cuda",
-        "source": src + "fused_cold_ffn.cu",
-        "replaces": "src/repro/kernels/cluster_gather_ffn.py:148",
+        "tptrain": tpt_out, "train": train_out, "families": fam_out,
+        "famtp": famtp_out, "examples": ex_out}, {
+        **registry.row("fused_cold_ffn (quant mode)"),
         "checked": True,
         "launches": sum(v["launches"] for v in q_serve.values()),
         "max_abs_err": q_err, "ms": q1["ms"], "plain_ms": q1["plain_ms"],
@@ -4164,16 +4808,14 @@ def main(argv=None):
                                  for sd, v in q_serve.items()},
         "serve_eager_profile": {sd: v["eager"]["profile"]
                                 for sd, v in q_serve.items()}}]
-    for name, line, shape_g in (
-            ("cluster_gather_ffn", "src/repro/kernels/cluster_gather_ffn.py:80",
+    for fixed, shape_g in (
+            (registry.row("cluster_gather_ffn"),
              "B=1 D=576 N=1536 R=3 cs=64 12 of 24 clusters bf16"),
-            ("dense_ffn", "src/repro/kernels/dense_ffn.py:22",
-             "B=1 D=576 N=1536 R=3 bf16")):
+            (registry.row("dense_ffn"), "B=1 D=576 N=1536 R=3 bf16")):
+        name = fixed["name"]
         g1 = g_timings[1][name]
         rows.append({
-            "name": name, "route": "cuda",
-            "source": src + "cluster_gather_ffn.cu", "replaces": line,
-            "checked": True, "launches": api[name],
+            **fixed, "checked": True, "launches": api[name],
             "launches_on": "the kernel API at full width (phase 6); the "
                            "serving path launches it 0 times",
             "launches_train_step": train_out["launches_train_step"][name],

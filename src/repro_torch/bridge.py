@@ -23,9 +23,10 @@ numpy holds them as ml_dtypes' extension type, or, read back from a
 leaf's declared dtype (`dtypes`, from a checkpoint's manifest) wins over
 the array's own.
 
-Over a group of ranks, `placements` says which slice of each leaf a
-rank holds (`parallel.shard_layout`: heads, vocab rows and columns, FFN
-rows, experts or each expert's rows), `shard_params` cuts the tree to
+Over a group of ranks, `placements` (`parallel.placements`) says which
+slice of each leaf a rank holds (`parallel.shard_layout`: heads, vocab
+rows and columns, FFN rows, experts or each expert's rows, mamba2's
+heads, the RG-LRU's channels), `shard_params` cuts the tree to
 one rank's slices (the counterpart of the reference's param specs and of
 its engine's `_shard_params` and `_QUANT_FFN_SPECS`), and
 `params_from_numpy(..., shard=, plan=)` builds that rank's model from
@@ -49,9 +50,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, rglru
 from repro_torch.models.dense import DenseModel
 from repro_torch.models.moe import MoEModel
-from repro_torch.models.model import SHARDED_FAMILIES, family
+from repro_torch.models.model import family
 from repro_torch.models.modules import resolve_device
-from repro_torch.parallel import ShardLayout, shard_layout
+from repro_torch.parallel import (ShardLayout, placements, shard_layout,
+                                  stacked)
 
 
 def _tensor(a, dtype: str = None) -> torch.Tensor:
@@ -99,31 +101,6 @@ def _index(a, idx):
     return a[idx]
 
 
-def placements(cfg: ModelConfig, layout: ShardLayout) -> dict:
-    """{leaf path: index} of the leaves `layout`'s rank holds a slice of:
-    its part of the whole leaf is whole[index]. Layer leaves' indices
-    leave out the stacked layer axis; the others stay whole."""
-    q0, nq, k0, nk = layout.heads
-    dh, A = cfg.d_head, slice(None)
-    vocab = slice(*layout.vocab)
-    out = {("embed",): (vocab,), ("lm_head",): (A, vocab)}
-    for k, (lo, n) in (("wq", (q0, nq)), ("wk", (k0, nk)),
-                       ("wv", (k0, nk))):
-        out["layers", "attn", k] = (A, slice(lo * dh, (lo + n) * dh))
-    out["layers", "attn", "wo"] = (slice(q0 * dh, (q0 + nq) * dh),)
-    if cfg.num_experts:
-        e0, ne = layout.experts
-        out["layers", "moe", "experts"] = (slice(e0, e0 + ne),
-                                           slice(*layout.expert_rows))
-        out["layers", "moe", "shared", "w"] = (slice(*layout.shared),)
-    else:
-        ids = layout.ffn.ids
-        for k in ("w", "wq", "wsc", "wout"):
-            out["layers", "ffn", k] = (ids,)
-        out["layers", "ffn", "pred", "B"] = (A, ids)
-    return out
-
-
 def _shard_tree(tree, cfg: ModelConfig, layout: ShardLayout):
     """The leaves of `tree` (the reference's layout, layer leaves stacked
     (L, ...) or per-layer sequences) that `layout`'s rank holds; the rest
@@ -136,7 +113,7 @@ def _shard_tree(tree, cfg: ModelConfig, layout: ShardLayout):
         idx = places.get(keys)
         if idx is None:
             return node
-        if keys[0] != "layers":
+        if not stacked(keys):
             return _index(node, idx)
         if isinstance(node, (list, tuple)):
             return [_index(t, idx) for t in node]
@@ -146,13 +123,14 @@ def _shard_tree(tree, cfg: ModelConfig, layout: ShardLayout):
 
 def shard_params(tree, cfg: ModelConfig, plan, rank: int, n: int):
     """The slices of `tree` that rank `rank` of `n` holds
-    (`parallel.shard_layout`): heads when both head counts divide n, the
-    embedding's vocab rows and the head's vocab columns when n divides
-    the padded vocabulary, the FFN rows (`w`, the predictor's B columns
-    and the quantized containers wq / wsc / wout) every bucket of `plan`
-    computes on the rank (its n-th of them when `plan` is None, for
-    training), whole experts (ep) or every expert's rows (tp) and shared
-    rows for moe. Layer leaves may be stacked (L, ...) arrays or
+    (`parallel.shard_layout`, `parallel.placements`): heads when both
+    head counts divide n, the embedding's vocab rows and the head's
+    vocab columns when n divides the padded vocabulary, the FFN rows
+    (`w`, the predictor's B columns and the quantized containers wq /
+    wsc / wout) every bucket of `plan` computes on the rank (its n-th of
+    them when `plan` is None, for training), whole experts (ep) or every
+    expert's rows (tp) and shared rows for moe, mamba2's heads and the
+    RG-LRU's channels. Layer leaves may be stacked (L, ...) arrays or
     per-layer sequences."""
     return _shard_tree(tree, cfg, shard_layout(cfg, plan, rank, n))
 
@@ -164,14 +142,11 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None,
     same place in `tree` (a per-layer list from the stacked leaf's rows),
     and the stored cold bundles wq / wsc / wout where the tree has them.
     `dtypes` (the same nesting) declares leaves' dtypes. With `shard`, a
-    ShardGroup of n > 1 ranks, a dense, vlm or moe model holds only its
-    rank's slices for serving `plan` (an ExecutionPlan), or for training
-    when `plan` is None."""
+    ShardGroup of n > 1 ranks, the model of any family holds only its
+    rank's slices for serving `plan` (an ExecutionPlan, or a HybridPlan
+    used at every batch), or for training when `plan` is None."""
     kw = {}
     if shard is not None and shard.size > 1:
-        if cfg.family not in SHARDED_FAMILIES:
-            raise ValueError(f"{cfg.name}: the {cfg.family} family has no "
-                             f"tensor-parallel layout")
         kw["layout"] = shard_layout(cfg, plan, shard.rank, shard.size)
         tree = _shard_tree(tree, cfg, kw["layout"])
     model = family(cfg)[0](cfg, resolve_device(device), seed=None, **kw)
@@ -393,7 +368,7 @@ def gather_params(model: DenseModel, shard, plan=None,
                 continue
             if keys not in out:
                 out[keys] = np.zeros(shapes[keys], a.dtype)
-            if keys[0] == "layers":
+            if stacked(keys):
                 idx = (slice(None),) + idx
             out[keys][idx] = a
     nested = {}

@@ -181,3 +181,15 @@ def cluster_gather_ffn_ref(x, w, cluster_idx, *, activation: str,
 def dense_ffn_ref(x, w, *, activation: str):
     """Dense bundled FFN. x (B, D), w (N, R, D) -> (B, D) in x's dtype."""
     return _apply_bundle(x, w, activation).to(x.dtype)
+
+
+def cluster_gather_ffn_grouped_ref(x, wc, cidx, *, activation: str):
+    """Plain version of `cluster_gather_ffn_grouped`: wc (G, nc_g, cs, R,
+    D) and cidx (G, kc), group g's ids offset by g * nc_g into the
+    flattened clusters."""
+    G, nc_g, cs, R, D = wc.shape
+    gidx = cidx + torch.arange(G, dtype=cidx.dtype,
+                               device=cidx.device)[:, None] * nc_g
+    return cluster_gather_ffn_ref(x, wc.reshape(G * nc_g * cs, R, D),
+                                  gidx.reshape(-1), activation=activation,
+                                  cluster_size=cs)

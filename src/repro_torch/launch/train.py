@@ -14,8 +14,9 @@ Runs on the CUDA card unless `--device cpu`:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --tp 2 --dp 2 --steps 10 --batch 4 --seq 32   # over 4 gloo ranks
 
-`--tp N` splits each replica's model over N ranks (an moe arch splits
-its experts as its `moe_shard_mode` says), `--dp N` runs N
+`--tp N` splits each replica's model over N ranks, in every family (an
+moe arch splits its experts as its `moe_shard_mode` says; mamba2 its
+heads, the hybrid its LRU channels), `--dp N` runs N
 data-parallel replicas, each on its rows of the global batch: dp * tp
 ranks, spawned as gloo processes on the one host (`parallel.spawn`; on
 the card they share it). Each rank draws the seeded weights leaf by
@@ -38,7 +39,7 @@ import numpy as np
 from repro_torch.bridge import gather_params, params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens, shard_batch
-from repro_torch.models.model import SHARDED_FAMILIES, build_model, wrap
+from repro_torch.models.model import build_model, wrap
 from repro_torch.models.modules import resolve_device
 from repro_torch.optim.adamw import AdamW
 from repro_torch.parallel import grid, replica_cfg, spawn
@@ -150,10 +151,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.tp < 1 or args.dp < 1:
         ap.error("--tp and --dp count ranks and replicas: at least 1 each")
-    family = get_config(args.arch).family
-    if args.tp > 1 and family not in SHARDED_FAMILIES:
-        ap.error(f"the {family} family has no tensor-parallel layout; "
-                 f"train {args.arch} with --dp only")
     model, losses = train(args.arch, args.steps, args.batch, args.seq,
                           args.reduced, args.lr, device=args.device,
                           tp=args.tp, dp=args.dp)

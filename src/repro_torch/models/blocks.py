@@ -146,13 +146,18 @@ def attn_decode(p: Attention, x, cfg: ModelConfig, angles, k_cache, v_cache,
         v_cache
 
 
-def cross_attn(p: Attention, x, mem_k, mem_v, cfg: ModelConfig):
+def cross_attn(p: Attention, x, mem_k, mem_v, cfg: ModelConfig,
+               shard=None):
     """Attention of x (B, S, D) to precomputed encoder memory mem_k /
-    mem_v (B, F, KV, dh): no RoPE, no mask."""
+    mem_v (B, F, KV, dh) of the kv heads p holds: no RoPE, no mask. Over
+    ranks x enters the split through `copy_in` and the heads' partial
+    outputs are joined after `wo`."""
     B, S, _ = x.shape
-    q = (x @ p.wq).reshape(B, S, cfg.num_heads, cfg.d_head)
+    if shard is not None and p.split:
+        x = shard.copy_in(x)
+    q = (x @ p.wq).reshape(B, S, -1, cfg.d_head)
     o = flash_attention(q, mem_k, mem_v, causal=False)
-    return o.reshape(B, S, -1) @ p.wo
+    return _out(p, o.reshape(B, S, -1), cfg, shard)
 
 
 # ------------------------------------------------------------------ FFN ----

@@ -14,9 +14,9 @@ for dense and vlm, `MoEModel` for moe, `SSMModel`, `HybridModel`,
 The batch is {"tokens"} for dense, moe, ssm and hybrid, {"tokens",
 "patch_embeds"} for vlm, whose logits cover the image positions too
 (B, P + S, V), and {"tokens", "frames"} for encdec. `build_model(cfg,
-shard=)` over a group of ranks (dense, vlm and moe) builds the rank's
-slice (`parallel.shard_layout(cfg, None, ...)`) and binds the group to
-the functions, which then take the same arguments. The module's
+shard=)` over a group of ranks builds the rank's slice of any family
+(`parallel.shard_layout(cfg, None, ...)`) and binds the group to the
+functions, which then take the same arguments. The module's
 parameters stay frozen (`requires_grad=False`) as built; the train step
 (`train/steps.py`) records autograd on them only while it
 differentiates.
@@ -34,10 +34,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import dense, encdec, moe, rglru, ssm, vlm
 from repro_torch.models.modules import resolve_device
 from repro_torch.parallel import shard_layout
-
-# the families whose model splits over a group of ranks
-SHARDED_FAMILIES = ("dense", "vlm", "moe")
-
 
 def _over_batch(fn, *keys):
     """fn(module, batch[tokens], batch[key]..., arg) as (module, batch,
@@ -132,14 +128,11 @@ def build_model(cfg: ModelConfig, device=None, seed=0, shard=None) -> Model:
     card), random weights from a `torch.Generator` seeded by `seed`
     (zero weights to be filled when None). With `shard`, a group of n >
     1 ranks, the module holds this rank's slice of the same weights
-    (each leaf drawn whole and cut), laid out for training; the ssm,
-    hybrid and encdec families raise."""
+    (each leaf drawn whole and cut), laid out for training, in every
+    family."""
     make_model = family(cfg)[0]
     if shard is None or shard.size == 1:
         return wrap(make_model(cfg, device=device, seed=seed))
-    if cfg.family not in SHARDED_FAMILIES:
-        raise ValueError(f"{cfg.name}: the {cfg.family} family has no "
-                         f"tensor-parallel layout")
     layout = shard_layout(cfg, None, shard.rank, shard.size)
     return wrap(make_model(cfg, device=resolve_device(device), seed=seed,
                            layout=layout), shard)

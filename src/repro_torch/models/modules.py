@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -32,6 +33,18 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def torch_index(index, device):
+    """An index as `parallel.placements` gives it (slices and numpy id
+    arrays) with its id arrays as tensors on `device`; None stays
+    None."""
+    if index is None:
+        return None
+    if not isinstance(index, tuple):
+        index = (index,)
+    return tuple(torch.from_numpy(i).to(device) if isinstance(i, np.ndarray)
+                 else i for i in index)
+
+
 def trunc_normal(shape, generator: torch.Generator, device, std: float = 1.0,
                  bound: float = 2.0, index=None) -> torch.Tensor:
     """fp32 normal truncated to [-bound, bound] standard deviations, by
@@ -44,7 +57,7 @@ def trunc_normal(shape, generator: torch.Generator, device, std: float = 1.0,
     u = torch.rand(shape, generator=generator, device=device,
                    dtype=torch.float32)
     if index is not None:
-        u = u[index]
+        u = u[torch_index(index, device)]
     z = torch.erfinv(2.0 * (lo + u * (hi - lo)) - 1.0) * math.sqrt(2.0)
     return z.clamp_(-bound, bound) * std
 
@@ -63,7 +76,8 @@ def embed_init(vocab: int, dim: int, dtype, generator, device, index=None):
     """N(0, 0.02) embedding rows; with `index`, that part of them."""
     z = torch.randn((vocab, dim), generator=generator, device=device,
                     dtype=torch.float32)
-    return ((z if index is None else z[index]) * 0.02).to(dtype)
+    return ((z if index is None else z[torch_index(index, device)]) * 0.02
+            ).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5):

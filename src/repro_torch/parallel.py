@@ -19,6 +19,16 @@ the model code receives where the reference reads the mesh:
 * the embedding splits by vocab rows and the head by vocab columns when
   the ranks divide the padded vocabulary (`vocab_range`); the logits
   are gathered whole on every rank (`models/dense.py`);
+* mamba2 (ssm) splits each layer by whole heads (`wz` / `wx` / `gn` /
+  `wo` by their d_inner columns or rows, `wdt`, `A_log`, `D`, `dt_bias`
+  by heads) when the heads divide the ranks; its gated norm over the
+  whole d_inner sums the ranks' squares (`ShardGroup.reduce_stat`);
+* the RG-LRU block (hybrid) splits by channels of the LRU width
+  (`w_in` / `w_gate` / the conv / the gates by channels, `w_out` by
+  rows) when the ranks divide it; the recurrence is per channel;
+* the encdec's self and cross attention split by heads as above, its
+  encoder FFNs as the prefill FFN (`dense_ranges`) and its decoder FFNs
+  as a decode step's;
 * dp replicas each run on their own group of ranks (`replica_groups`),
   and the ranks that share a tp index across replicas form the data
   groups (`data_groups`) over which training sums its gradients.
@@ -30,7 +40,14 @@ backward), so a train step over ranks gives each rank the gradient of
 its slices and the whole gradient of every replicated parameter.
 `gather_vocab` joins the vocab columns in rank order; its backward takes
 the rank's own columns, since every rank computes the same loss from the
-gathered logits.
+gathered logits. `reduce_stat` sums a statistic every rank's slice reads
+(mamba2's sum of squares): an fp32 all-reduce forward and backward. A
+whole (replicated) leaf that only a split region reads enters it through
+`copy_in` too, so its gradient sums the ranks' parts.
+
+`placements` says, leaf path by leaf path in the reference's parameter
+tree, which part of each leaf a rank holds; the modules size and draw
+their slices from it, and `bridge` cuts and gathers trees by it.
 
 A group of size 1 takes the single-device code path and makes no
 collective call. `spawn` starts the ranks of one host as processes
@@ -40,6 +57,7 @@ contend for a port.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import queue
@@ -56,6 +74,7 @@ import torch.distributed as dist
 
 __all__ = ["ShardGroup", "LOCAL", "NeuronRows", "ShardLayout", "hot_range",
            "cold_range", "ffn_ranges", "shard_layout", "vocab_range",
+           "placements", "places_under", "cut_shape", "stacked",
            "replica_groups", "data_groups", "grid", "replica_cfg",
            "init_world", "spawn"]
 
@@ -123,6 +142,14 @@ class ShardGroup:
         rank computes the same loss from the whole logits, so no sum)."""
         return _GatherVocab.apply(logits, self) \
             if _records(self, logits) else self.all_gather_cols(logits)
+
+    def reduce_stat(self, s: torch.Tensor) -> torch.Tensor:
+        """The ranks' partial statistic `s` summed in fp32, a sum every
+        rank's slice then reads (mamba2's gated norm over the split
+        d_inner); the backward sums the ranks' gradients of it the same
+        way, since each rank's slice contributes its own part."""
+        return _ReduceStat.apply(s, self) if _records(self, s) else \
+            self.all_reduce_f32(s)
 
     def all_gather_ids(self, idx: torch.Tensor) -> torch.Tensor:
         """Each rank's (g, ...) ids stacked in rank order -> (size * g,
@@ -192,6 +219,17 @@ class _ReduceOut(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _ReduceStat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, s, shard):
+        ctx.shard = shard
+        return shard.all_reduce_f32(s)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shard.all_reduce_f32(g.contiguous()), None
 
 
 class _GatherVocab(torch.autograd.Function):
@@ -369,15 +407,25 @@ class NeuronRows:
 class ShardLayout:
     """What one rank holds of the model: its attention heads (all of them
     unless both head counts divide the ranks), its vocab rows of the
-    embedding and columns of the head, its FFN rows (dense and vlm), and
-    its routed experts, each expert's neuron rows and its shared rows
-    (moe)."""
+    embedding and columns of the head, its FFN rows (dense, vlm, hybrid,
+    encdec's decoder; `enc_ffn` for encdec's encoder), its routed
+    experts, each expert's neuron rows and its shared rows (moe), its
+    mamba2 heads (ssm) and its LRU channels (hybrid)."""
     heads: tuple            # (first q head, q heads, first kv head, kv heads)
     ffn: Optional[NeuronRows] = None
     experts: tuple = (0, 0)  # (first expert, experts)
     shared: tuple = (0, 0)   # shared-expert rows [lo, hi)
     vocab: tuple = (0, 0)    # vocab rows [lo, hi) of embed, columns of head
     expert_rows: tuple = (0, 0)  # each held expert's neuron rows [lo, hi)
+    ssm_heads: tuple = (0, 0)    # (first mamba2 head, heads)
+    channels: tuple = (0, 0)     # RG-LRU channels [lo, hi)
+    enc_ffn: Optional[NeuronRows] = None
+
+    @property
+    def enc(self) -> "ShardLayout":
+        """The layout an encdec encoder layer is built at: its FFN rows
+        are `enc_ffn`."""
+        return dataclasses.replace(self, ffn=self.enc_ffn)
 
 
 def attention_sharded(cfg, n: int) -> bool:
@@ -433,16 +481,55 @@ def _moe_layout(cfg, plan, rank: int, n: int, heads, vocab) -> ShardLayout:
                        expert_rows=rows)
 
 
+def ssm_range(cfg, rank: int, n: int) -> tuple:
+    """(first head, heads) of mamba2's heads rank holds: an n-th when n
+    divides them, else all of them (the layer replicates)."""
+    h = cfg.ssm_heads
+    if n > 1 and h % n == 0:
+        return (rank * h // n, h // n)
+    return (0, h)
+
+
+def channel_range(cfg, rank: int, n: int) -> tuple:
+    """The RG-LRU channels [lo, hi) rank holds: an n-th of the LRU width
+    (d_model) when n divides it, else all of it."""
+    d = cfg.d_model
+    if n > 1 and d % n == 0:
+        return (rank * d // n, (rank + 1) * d // n)
+    return (0, d)
+
+
+def _ffn_rows(cfg, plan, rank: int, n: int) -> tuple:
+    """(the FFN rows a decode layer holds, those of a prefill-only FFN):
+    with `plan` (an ExecutionPlan, or one HybridPlan for every batch)
+    the union over its bucket plans of the rows a decode step computes
+    (`ffn_ranges`) and the prefill's, and the prefill's alone; without
+    one, the rank's n-th of the N rows for both."""
+    N = cfg.d_ff
+    if plan is None:
+        dense = [hot_range(N, rank, n)]
+        rows = NeuronRows(dense, N, dense)
+        return rows, rows
+    plans = list(plan.plans.values()) if hasattr(plan, "plans") else [plan]
+    first = plan.plan_for_batch(1) if hasattr(plan, "plans") else plan
+    ranges = [r for p in plans for r in ffn_ranges(p, N, rank, n)]
+    dense = dense_ranges(first, N, rank, n)
+    return NeuronRows(ranges + dense, N, dense), NeuronRows(dense, N, dense)
+
+
 def shard_layout(cfg, plan, rank: int, n: int) -> ShardLayout:
     """Rank `rank` of `n`'s slice of `cfg`'s model: the counterpart of
     the reference's param specs filtered by `_filter_spec` (a dim that n
-    does not divide replicates). Served with `plan` (an ExecutionPlan),
-    its FFN rows are the union, over every bucket plan, of the rows a
-    decode step computes (`ffn_ranges`), so each bucket's hot and cold
-    slices are views of the local bundle; for training (plan None) they
-    are the rank's n-th of the N rows. The vocab splits as
-    `vocab_range` gives it; moe experts split by whole experts ('ep')
-    or by each expert's rows ('tp', `neuron_parallel`)."""
+    does not divide replicates). Served with `plan` (an ExecutionPlan,
+    or a HybridPlan used at every batch), its FFN rows are the union,
+    over every bucket plan, of the rows a decode step computes
+    (`ffn_ranges`), so each bucket's hot and cold slices are views of
+    the local bundle; an FFN that only ever runs dense (encdec's
+    encoder) holds the prefill's rows; for training (plan None) both
+    are the rank's n-th of the N rows. The vocab splits as `vocab_range`
+    gives it; moe experts split by whole experts ('ep') or by each
+    expert's rows ('tp', `neuron_parallel`); mamba2 by whole heads
+    (`ssm_range`), the RG-LRU by channels (`channel_range`)."""
     h, kv = cfg.num_heads, cfg.num_kv_heads
     if attention_sharded(cfg, n):
         heads = (rank * h // n, h // n, rank * kv // n, kv // n)
@@ -451,16 +538,135 @@ def shard_layout(cfg, plan, rank: int, n: int) -> ShardLayout:
     vocab = vocab_range(cfg, rank, n)
     if cfg.num_experts:
         return _moe_layout(cfg, plan, rank, n, heads, vocab)
-    N = cfg.d_ff
-    if plan is None:
-        dense = [hot_range(N, rank, n)]
-        return ShardLayout(heads, ffn=NeuronRows(dense, N, dense),
-                           vocab=vocab)
-    plans = list(plan.plans.values())
-    ranges = [r for p in plans for r in ffn_ranges(p, N, rank, n)]
-    dense = dense_ranges(plan.plan_for_batch(1), N, rank, n)
-    return ShardLayout(heads, ffn=NeuronRows(ranges + dense, N, dense),
-                       vocab=vocab)
+    if cfg.family == "ssm":
+        return ShardLayout(heads, vocab=vocab,
+                           ssm_heads=ssm_range(cfg, rank, n))
+    rows, enc = _ffn_rows(cfg, plan, rank, n)
+    hybrid, encdec = cfg.family == "hybrid", cfg.family == "encdec"
+    return ShardLayout(heads, ffn=rows, vocab=vocab,
+                       channels=channel_range(cfg, rank, n) if hybrid
+                       else (0, 0), enc_ffn=enc if encdec else None)
+
+
+# ------------------------------------------------------------ placements ----
+
+# the top-level keys of the reference's trees whose leaves stack a layer
+# (or group) axis first
+STACKED = ("layers", "groups", "enc_layers", "dec_layers")
+
+
+def stacked(keys: tuple) -> bool:
+    """True when the leaf at `keys` stacks a layer axis first."""
+    return keys[0] in STACKED
+
+
+def _under(prefix: tuple, places: dict) -> dict:
+    return {prefix + k: v for k, v in places.items()}
+
+
+def _attn_places(cfg, heads) -> dict:
+    q0, nq, k0, nk = heads
+    dh, A = cfg.d_head, slice(None)
+    out = {(k,): (A, slice(lo * dh, (lo + m) * dh))
+           for k, (lo, m) in (("wq", (q0, nq)), ("wk", (k0, nk)),
+                              ("wv", (k0, nk)))}
+    out["wo", ] = (slice(q0 * dh, (q0 + nq) * dh),)
+    return out
+
+
+def _ffn_places(rows: NeuronRows) -> dict:
+    ids = rows.ids
+    out = {(k,): (ids,) for k in ("w", "wq", "wsc", "wout")}
+    out["pred", "B"] = (slice(None), ids)
+    return out
+
+
+def _ssm_places(cfg, layout: ShardLayout) -> dict:
+    """mamba2's layer leaves: d_inner columns of whole heads (wz, wx,
+    gn, wo's rows), the heads' columns of wdt and their A_log / D /
+    dt_bias; wB, wC and the conv stay whole (a split region reads them,
+    through `copy_in`)."""
+    h0, nh = layout.ssm_heads
+    p, A = cfg.ssm_head_dim, slice(None)
+    cols, heads = slice(h0 * p, (h0 + nh) * p), slice(h0, h0 + nh)
+    out = {("wz",): (A, cols), ("wx",): (A, cols), ("wdt",): (A, heads),
+           ("gn",): (cols,), ("wo",): (cols,)}
+    for k in ("A_log", "D", "dt_bias"):
+        out[k, ] = (heads,)
+    return out
+
+
+def _rec_places(cfg, layout: ShardLayout) -> dict:
+    """An RG-LRU block's leaves: the LRU channels of w_in / w_gate's
+    columns, the conv, the gates and w_out's rows, and its FFN rows."""
+    ch, A = slice(*layout.channels), slice(None)
+    out = {("w_in",): (A, ch), ("w_gate",): (A, ch), ("conv_w",): (A, ch),
+           ("conv_b",): (ch,), ("w_out",): (ch,)}
+    for k in ("w_r", "b_r", "w_i", "b_i", "lam"):
+        out["lru", k] = (ch,)
+    return {**out, **_under(("ffn",), _ffn_places(layout.ffn))}
+
+
+def _block_places(cfg, layout: ShardLayout, kind: str) -> dict:
+    if kind == "rec":
+        return _rec_places(cfg, layout)
+    return {**_under(("attn",), _attn_places(cfg, layout.heads)),
+            **_under(("ffn",), _ffn_places(layout.ffn))}
+
+
+def placements(cfg, layout: ShardLayout) -> dict:
+    """{leaf path: index} of the leaves in the reference's tree of `cfg`'s
+    family that `layout`'s rank holds a slice of: its part of the whole
+    leaf is whole[index], an index being a tuple of slices and 1-D id
+    arrays over the leaf's leading dims. Stacked leaves' indices leave
+    out the layer axis (`stacked`); the leaves not named stay whole."""
+    vocab, A = slice(*layout.vocab), slice(None)
+    out = {("embed",): (vocab,), ("lm_head",): (A, vocab)}
+    attn = _attn_places(cfg, layout.heads)
+    if cfg.family == "ssm":
+        out.update(_under(("layers",), _ssm_places(cfg, layout)))
+    elif cfg.family == "hybrid":
+        period = len(cfg.block_pattern)
+        n_groups = cfg.num_layers // period
+        for i, kind in enumerate(cfg.block_pattern):
+            out.update(_under(("groups", f"b{i}"),
+                              _block_places(cfg, layout, kind)))
+        for j, kind in enumerate(
+                cfg.block_pattern[:cfg.num_layers - n_groups * period]):
+            out.update(_under((f"rem{j}",), _block_places(cfg, layout, kind)))
+    elif cfg.family == "encdec":
+        out.update(_under(("enc_layers", "attn"), attn))
+        out.update(_under(("enc_layers", "ffn"), _ffn_places(layout.enc_ffn)))
+        for k in ("attn", "xattn"):
+            out.update(_under(("dec_layers", k), attn))
+        out.update(_under(("dec_layers", "ffn"), _ffn_places(layout.ffn)))
+    else:
+        out.update(_under(("layers", "attn"), attn))
+        if cfg.num_experts:
+            e0, ne = layout.experts
+            out["layers", "moe", "experts"] = (slice(e0, e0 + ne),
+                                               slice(*layout.expert_rows))
+            out["layers", "moe", "shared", "w"] = (slice(*layout.shared),)
+        else:
+            out.update(_under(("layers", "ffn"), _ffn_places(layout.ffn)))
+    return out
+
+
+def places_under(places: dict, prefix: tuple) -> dict:
+    """The entries of `placements` below `prefix`, keyed by the rest of
+    their path (the leaves of one module)."""
+    k = len(prefix)
+    return {p[k:]: v for p, v in places.items() if p[:k] == prefix}
+
+
+def cut_shape(shape, index) -> tuple:
+    """The shape of whole[index] for a whole leaf of `shape` (index as
+    `placements` gives it; None keeps the whole shape)."""
+    out = list(shape)
+    for d, i in enumerate(index or ()):
+        out[d] = len(range(*i.indices(shape[d]))) \
+            if isinstance(i, slice) else len(i)
+    return tuple(out)
 
 
 # -------------------------------------------------------------- launch ----

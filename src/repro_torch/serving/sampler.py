@@ -1,4 +1,4 @@
-"""Token sampling: greedy, temperature and top-k.
+"""Token sampling: greedy, temperature and top-k, plus Best-of-N scoring.
 
 Counterpart of `repro/serving/sampler.py`. Randomness comes from an
 explicit `torch.Generator`; no torch generator reproduces `jax.random`,
@@ -23,3 +23,12 @@ def sample_tokens(logits: torch.Tensor, temperature: float = 1.0,
     probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
         torch.int32)
+
+
+def sequence_logprob(logits_seq: torch.Tensor,
+                     tokens_seq: torch.Tensor) -> torch.Tensor:
+    """Mean token log-prob of tokens_seq (B, S) under logits_seq (B, S,
+    V), in fp32: the Best-of-N ranking score (the paper's Fig 1b)."""
+    logp = torch.log_softmax(logits_seq.float(), dim=-1)
+    ll = logp.gather(-1, tokens_seq.long()[..., None])[..., 0]
+    return ll.mean(dim=-1)

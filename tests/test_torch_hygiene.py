@@ -1,5 +1,5 @@
-"""Port hygiene: the port and chip_smoke.py import no jax and nothing of
-the JAX package; entry points refuse a missing card instead of running
+"""Port hygiene: the port, its examples (examples_torch/) and
+chip_smoke.py import no jax and nothing of the JAX package; entry points refuse a missing card instead of running
 on the CPU; the pieces the parity tests do not reach (zombie KV lanes,
 storage accounting, the CLI at every storage dtype, where the quantized
 containers live) behave as documented."""
@@ -32,12 +32,17 @@ def test_port_and_smoke_import_no_jax():
                  "repro_torch.launch.train",
                  "repro_torch.models.model", "repro_torch.models.ssm",
                  "repro_torch.models.rglru",
-                 "repro_torch.models.encdec"}} <= set(names)
+                 "repro_torch.models.encdec",
+                 "repro_torch.kernels.registry"}} <= set(names)
         for n in names:
             importlib.import_module(n)
-        spec = importlib.util.spec_from_file_location(
-            "chip_smoke", {str(ROOT / 'chip_smoke.py')!r})
-        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        paths = [{str(ROOT / 'chip_smoke.py')!r}] + sorted(
+            str(p) for p in __import__("pathlib").Path(
+                {str(ROOT / 'examples_torch')!r}).glob("*.py"))
+        assert len(paths) == 5, paths
+        for path in paths:
+            spec = importlib.util.spec_from_file_location("m", path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad

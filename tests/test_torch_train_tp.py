@@ -338,17 +338,20 @@ def test_slice_drawn_leaf_by_leaf_is_the_whole_models_slice(arch, n):
                 assert torch.equal(a, b), (arch, n, r, keys)
 
 
-def test_train_cli_refuses_what_serve_refuses():
-    """--tp and --dp count at least 1, --tp needs a family with a
-    tensor-parallel layout, and the train CLI has no --ep (--tp sizes
-    an moe arch's ranks too); and dp replicas of an moe config must
-    split its dispatch groups; all before any rank starts."""
+def test_train_cli_refuses_what_serve_refuses(capsys):
+    """--tp and --dp count at least 1 and the train CLI has no --ep
+    (--tp sizes an moe arch's ranks too); and dp replicas of an moe
+    config must split its dispatch groups; all before any rank starts.
+    Every family has a tensor-parallel layout: mamba2-130m trains at
+    --tp 2 --dp 2."""
     from repro_torch.launch.train import main
     from repro_torch.parallel import replica_cfg
-    for argv in (["--tp", "0"], ["--dp", "0"], ["--ep", "2"],
-                 ["--arch", "mamba2-130m", "--tp", "2"]):
+    for argv in (["--tp", "0"], ["--dp", "0"], ["--ep", "2"]):
         with pytest.raises(SystemExit):
             main(["--device", "cpu"] + argv)
+    main(["--arch", "mamba2-130m", "--tp", "2", "--dp", "2", "--steps",
+          "1", "--device", "cpu"])
+    assert "final loss" in capsys.readouterr().out
     ds = tget_config("deepseek-moe-16b").reduced()
     with pytest.raises(ValueError, match="does not split over dp=2"):
         replica_cfg(ds, 2)
