@@ -238,6 +238,14 @@ without printing a result:
             best_of_n, offloaded_serving, plan_and_inspect) on the card at
             the reference examples' reduced sizes: each finishes, and
             best-of-N's batch timeline decays 4 -> 1;
+   analyze — the analysis gate's card tier: the dispatch tier of
+            repro_torch.analysis on the card under torch.cuda's sync
+            debug mode (graphed steps: no sync, no host read, no
+            host-to-device copy), each source's ptxas registers, static
+            smem (equal to the smem-budget estimate) and spills, and
+            compute-sanitizer's racecheck over fused_cold_ffn (where the
+            tool answers "Device not supported" the phase says so and
+            checks nothing; any other early end fails);
 7. summary — a JSON line of every kernel, then {"ok": true, ...}.
 
 `--only` runs the card and build phases and then the named ones, and
@@ -4618,9 +4626,103 @@ def phase_examples():
     return out
 
 
+def phase_analyze(built):
+    """The analysis gate's card tier (python -m repro_torch.analysis is
+    its CPU side): (1) the dispatch self-test on the card, where
+    dispatch-h2d must fire too, then every entry of analysis/entries.py
+    on the card (tp / ep 2 on two gloo ranks sharing it), graphed
+    entries under torch.cuda's sync debug mode "error", eager ones
+    under "warn", each finding allowlisted (the committed
+    analysis/allowlist.json, its dispatch/cuda/ keys) or failing, and
+    no finding at all for a graphed entry; (2) the build's -Xptxas -v
+    report of each source: registers, static smem and spills of every
+    kernel, the static smem equal to the smem-budget rule's estimate,
+    any spill a finding; (3) compute-sanitizer: racecheck over one
+    fused_cold_ffn call (analysis/sanitizer.py's probe). Where the tool
+    answers "Device not supported", the phase prints that line and the
+    tier is blocked (nothing is checked, nothing claimed); a run that
+    neither is blocked nor reaches the driver's end fails, as does a
+    hazard. The other tools, kernels and the race mutants are not
+    written (ROADMAP), and the phase says so where the tool runs. The
+    kernel launches of this phase are checks, so the counts are put
+    back."""
+    from repro_torch.analysis import sanitizer
+    from repro_torch.analysis.__main__ import DEFAULT_ALLOWLIST
+    from repro_torch.analysis.dispatch_rules import dispatch_findings
+    from repro_torch.analysis.dispatch_selftest import (
+        run_dispatch_self_test)
+    from repro_torch.analysis.entries import entries
+    from repro_torch.analysis.framework import apply_allowlist, load_json
+    from repro_torch.analysis.kernel_hygiene import ptxas_findings
+    counts = ops.launch_counts()
+    out = {}
+    print("== phase analyze: the dispatch tier on the card")
+    t0 = time.perf_counter()
+    ok, lines = run_dispatch_self_test("cuda")
+    for line in lines:
+        print(f"  self-test {line}")
+    if not ok:
+        raise AssertionError("the dispatch self-test fails on the card")
+    findings = dispatch_findings("cuda")
+    allow = {k: v for k, v in load_json(DEFAULT_ALLOWLIST, {}).items()
+             if k.startswith("dispatch/cuda/")}
+    kept, allowed, stale = apply_allowlist(findings, allow)
+    graphed = {e.path("cuda") for e in entries() if e.graphed}
+    for f in findings:
+        print(f"  {'allowlisted' if f in allowed else 'FINDING'} {f}")
+    bad = [f for f in findings if f.path in graphed]
+    if kept or stale or bad:
+        raise AssertionError(f"dispatch tier on the card: {len(kept)} "
+                             f"finding(s) outside the allowlist, stale "
+                             f"entries {stale}, graphed-entry findings "
+                             f"{[str(f) for f in bad]}")
+    out["dispatch"] = dict(entries=len(entries()), findings=len(findings),
+                           allowlisted=[f.key for f in allowed],
+                           seconds=time.perf_counter() - t0)
+    print(f"  [dispatch: {len(entries())} entries, {len(findings)} "
+          f"allowlisted finding(s), {out['dispatch']['seconds']:.1f} s]")
+
+    print("== phase analyze: ptxas against the smem-budget estimate")
+    out["ptxas"] = {}
+    for name, b in built.items():
+        src = kbuild.CSRC / f"{name}.cu"
+        fs, rows = ptxas_findings(
+            f"src/repro_torch/kernels/csrc/{name}.cu", src.read_text(),
+            b.report)
+        for r in rows:
+            print(f"  {r['kernel']}<{r['T']}>: {r['registers']} registers, "
+                  f"{r['smem']} B static smem, {r['spill']} B spills")
+        for f in fs:
+            print(f"  FINDING {f}")
+        if fs or not rows:
+            raise AssertionError(f"{name}.cu: ptxas disagrees with the "
+                                 f"static estimate or spills: {fs}")
+        out["ptxas"][name] = [{k: r[k] for k in ("kernel", "T", "registers",
+                                                 "smem", "spill")}
+                              for r in rows]
+
+    print("== phase analyze: compute-sanitizer")
+    probe = sanitizer.run_tool("racecheck", timeout=120)
+    if probe.blocked:
+        print(f"  compute-sanitizer is blocked on this machine: "
+              f"{probe.blocked!r}; no tool ran, nothing is checked")
+        out["sanitizer"] = dict(blocked=probe.blocked)
+    else:
+        if probe.hazards:
+            raise AssertionError(f"racecheck over fused_cold_ffn: "
+                                 f"{[str(f) for f in probe.findings()]}")
+        print("  racecheck over fused_cold_ffn: no hazard; the other "
+              "tools, kernels and the race mutants are not written here "
+              "(ROADMAP), so nothing else is checked")
+        out["sanitizer"] = dict(racecheck_fused_cold_ffn=0)
+    ops.set_launch_counts(counts)
+    print(json.dumps({"analyze": out}))
+    return out
+
+
 PHASES = ("kernel", "quant", "times", "gather", "serve", "parity", "api",
           "fleet", "archs", "vlm", "moe", "plan", "tp", "tptrain",
-          "train", "families", "famtp", "examples")
+          "train", "families", "famtp", "examples", "analyze")
 
 
 def main(argv=None):
@@ -4688,6 +4790,7 @@ def main(argv=None):
     fam_out = timed("families", phase_families, card)
     famtp_out = timed("famtp", phase_famtp, card)
     ex_out = timed("examples", phase_examples)
+    timed("analyze", phase_analyze, built)
     if run != set(PHASES):
         print(f"chip_smoke: ran phases {sorted(run)} only; no summary")
         return 0

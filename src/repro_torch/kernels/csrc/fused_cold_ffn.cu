@@ -537,12 +537,13 @@ gate_up_kernel(const T* __restrict__ x, const Bundles<T> w,
           }
         }
       }
-      cp_async_wait_all();                  // this thread's own runs of x
+      cp_async_wait_all();  // this thread's own runs of x: it reads back only
+                            // what it staged (stage_own), so no barrier
       // every row of the tile, so the rows' chains interleave; a row past
       // B re-reads the last live one and is never stored
 #pragma unroll
       for (int q = 0; q < kGateRows; ++q) {
-        const T* xq = xs + min(q, nrows - 1) * DC;
+        const T* xq = xs + min(q, nrows - 1) * DC;  // repro: ignore[async-copy-pairing]
 #pragma unroll
         for (int s = 0; s < S; ++s) {
           const int cc = (s * kGateThreads + t) * V;
@@ -704,7 +705,7 @@ int launch(const void* x, const Bundles<T>& wt, const void* A, const void* Bp, i
 
   const size_t gate_smem = (size_t)kGateRows * GateChunk<T>::cols * sizeof(T) +
                            (size_t)nc_g * sizeof(float);
-  if (gate_smem + 1024 > 48 * 1024 &&    // dynamic plus the kernel's static 320 bytes
+  if (gate_smem + 1024 > 48 * 1024 &&    // dynamic plus the kernel's static 192 bytes
       (err = cudaFuncSetAttribute(gate_up_kernel<T, MODE>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)gate_smem)) != cudaSuccess)

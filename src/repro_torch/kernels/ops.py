@@ -26,6 +26,10 @@ _MODE_FP, _MODE_INT8, _MODE_MIXED = 0, 1, 2
 # rows of A per block of fused_cold_ffn's hidden kernel (kHidD): h is
 # scratch of ceil(D / 64) fp32 partial products per (row, column)
 _HIDDEN_SPLIT = 64
+# the largest runtime sizes fused_cold_ffn takes (its shape check below;
+# the analysis gate's smem-budget rule bounds the kernels' dynamic shared
+# memory over them)
+FUSED_DIM_BOUNDS = {"r": 1024, "cs": 1024, "nc_g": 12288}
 
 
 # the wrappers that count their launches (`_counts_launches`)
@@ -149,11 +153,13 @@ def fused_cold_ffn(x, wc, A, Bp, *, activation: str, mode: str = "relu",
         raise ValueError(f"shapes disagree: x {tuple(x.shape)}, wc "
                          f"{tuple(wc.shape)}, A {tuple(A.shape)}, Bp "
                          f"{tuple(Bp.shape)}")
-    if not (B >= 1 and R in (2, 3) and 1 <= kc <= nc_g and cs <= 1024
-            and 1 <= r <= 1024 and nc_g <= 12288):
+    bound = FUSED_DIM_BOUNDS
+    if not (B >= 1 and R in (2, 3) and 1 <= kc <= nc_g and cs <= bound["cs"]
+            and 1 <= r <= bound["r"] and nc_g <= bound["nc_g"]):
         raise ValueError(f"unsupported shape: B={B} (>= 1), R={R} (2|3), "
-                         f"kc={kc} (1..nc_g={nc_g}), cs={cs} (<=1024), "
-                         f"r={r} (<=1024), nc_g <= 12288")
+                         f"kc={kc} (1..nc_g={nc_g}), cs={cs} "
+                         f"(<={bound['cs']}), r={r} (<={bound['r']}), "
+                         f"nc_g={nc_g} (<={bound['nc_g']})")
     if not (x.is_contiguous() and wc.is_contiguous() and A.is_contiguous()
             and Bp.stride(1) == 1
             and all(t is None or t.is_contiguous() for t in (wq, wsc, wout))):

@@ -157,7 +157,9 @@ class ShardGroup:
         returned on idx's device."""
         if self.size == 1:
             return idx
-        t = idx.cpu()
+        # never inside a CUDA graph: a group of one returns above, and an
+        # engine over ranks steps eagerly (ServeEngine.graph_policy)
+        t = idx.cpu()  # repro: ignore[host-sync]
         parts = [torch.empty_like(t) for _ in range(self.size)]
         dist.all_gather(parts, t, group=self.group)
         self.calls += 1

@@ -6,8 +6,9 @@ planner's profile and calibration on the card against the CPU, the
 profiled engine graphed and eager, and calibration under captured
 graphs; fused_cold_ffn on each gloo rank's own groups, ranks sharing
 the card; a train step on the card against the CPU and the checkpoint
-round trip on the card. Marked
-`gpu`: without a card each test skips with a reason.
+round trip on the card; compute-sanitizer's racecheck over
+fused_cold_ffn. Marked `gpu`: without a card each test skips with a
+reason.
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -1073,3 +1074,18 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
         q = mine[name]
         assert p.device.type == "cuda" and not p.requires_grad
         assert p.dtype == q.dtype and torch.equal(p, q), name
+
+
+@pytest.mark.gpu
+def test_fused_cold_ffn_under_racecheck(cuda):
+    """compute-sanitizer's racecheck over fused_cold_ffn at one small
+    shape (bf16, B 4, smollm-135m's cold path): no hazard. A machine
+    whose driver the tool does not support answers "Device not
+    supported" before any kernel runs; the test then skips with that
+    line, since nothing was checked. Any other run that does not reach
+    the driver's end raises (run_tool)."""
+    from repro_torch.analysis import sanitizer
+    rep = sanitizer.run_tool("racecheck", timeout=300)
+    if rep.blocked:
+        pytest.skip(f"compute-sanitizer runs no tool here: {rep.blocked}")
+    assert not rep.hazards, [str(f) for f in rep.findings()]

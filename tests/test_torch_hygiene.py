@@ -1,5 +1,6 @@
-"""Port hygiene: the port, its examples (examples_torch/) and
-chip_smoke.py import no jax and nothing of the JAX package; entry points refuse a missing card instead of running
+"""Port hygiene: the port (its analysis gate and that gate's CLI too), its
+examples (examples_torch/) and chip_smoke.py import no jax and nothing of
+the JAX package; entry points refuse a missing card instead of running
 on the CPU; the pieces the parity tests do not reach (zombie KV lanes,
 storage accounting, the CLI at every storage dtype, where the quantized
 containers live) behave as documented."""
@@ -33,7 +34,11 @@ def test_port_and_smoke_import_no_jax():
                  "repro_torch.models.model", "repro_torch.models.ssm",
                  "repro_torch.models.rglru",
                  "repro_torch.models.encdec",
-                 "repro_torch.kernels.registry"}} <= set(names)
+                 "repro_torch.kernels.registry",
+                 "repro_torch.analysis", "repro_torch.analysis.__main__",
+                 "repro_torch.analysis.framework",
+                 "repro_torch.analysis.dispatch_rules",
+                 "repro_torch.analysis.sanitizer"}} <= set(names)
         for n in names:
             importlib.import_module(n)
         paths = [{str(ROOT / 'chip_smoke.py')!r}] + sorted(
@@ -52,6 +57,30 @@ def test_port_and_smoke_import_no_jax():
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 25     # every module was imported
+
+
+def test_analysis_cli_imports_no_jax():
+    """`python -m repro_torch.analysis --self-test` (the package's
+    __main__ over the static fixtures) loads no module of jax or the JAX
+    package; the test above imports every module of the gate."""
+    code = textwrap.dedent(f"""
+        import runpy, sys
+        sys.path.insert(0, {str(ROOT / 'src')!r})
+        sys.argv = ["repro_torch.analysis", "--self-test"]
+        try:
+            runpy.run_module("repro_torch.analysis", run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        assert "repro_torch.analysis.kernel_hygiene" in sys.modules
+        print("clean")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("clean")
 
 
 def _rank_modules(shard):
