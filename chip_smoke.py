@@ -242,10 +242,16 @@ without printing a result:
             repro_torch.analysis on the card under torch.cuda's sync
             debug mode (graphed steps: no sync, no host read, no
             host-to-device copy), each source's ptxas registers, static
-            smem (equal to the smem-budget estimate) and spills, and
+            smem (equal to the smem-budget estimate) and spills,
             compute-sanitizer's racecheck over fused_cold_ffn (where the
             tool answers "Device not supported" the phase says so and
-            checks nothing; any other early end fails);
+            checks nothing; any other early end fails), and the shadow
+            tier: every registry entry through the shadow build of its
+            source (built with the mutants in one nvcc batch under the
+            phase's first parts) at the tier's shapes, no finding and outputs
+            bit-identical to the normal build's, then every mutant of
+            analysis/shadow_mutants.py in a subprocess of its own, each
+            firing exactly its rules;
 7. summary — a JSON line of every kernel, then {"ok": true, ...}.
 
 `--only` runs the card and build phases and then the named ones, and
@@ -4642,11 +4648,18 @@ def phase_analyze(built):
     answers "Device not supported", the phase prints that line and the
     tier is blocked (nothing is checked, nothing claimed); a run that
     neither is blocked nor reaches the driver's end fails, as does a
-    hazard. The other tools, kernels and the race mutants are not
-    written (ROADMAP), and the phase says so where the tool runs. The
-    kernel launches of this phase are checks, so the counts are put
-    back."""
-    from repro_torch.analysis import sanitizer
+    hazard. The tool's other checks and kernels are not written
+    (ROADMAP); (4) the shadow tier (analysis/shadow.py): the shadow and
+    mutant libraries (one nvcc batch, started at the phase's start, so
+    that it builds under parts 1-3) are waited for,
+    every case of shadow.CASES runs through the shadow build, with
+    no finding and every output bit-identical to the normal build's,
+    then every mutant of analysis/shadow_mutants.py runs in a subprocess
+    of its own and must fire exactly its rules, and a perturbed output
+    must fire shadow-fidelity. A finding, a failed build, a full log or a
+    mutant that fires other rules (or hangs) fails the phase. The kernel
+    launches of this phase are checks, so the counts are put back."""
+    from repro_torch.analysis import sanitizer, shadow, shadow_mutants
     from repro_torch.analysis.__main__ import DEFAULT_ALLOWLIST
     from repro_torch.analysis.dispatch_rules import dispatch_findings
     from repro_torch.analysis.dispatch_selftest import (
@@ -4655,6 +4668,9 @@ def phase_analyze(built):
     from repro_torch.analysis.framework import apply_allowlist, load_json
     from repro_torch.analysis.kernel_hygiene import ptxas_findings
     counts = ops.launch_counts()
+    shadow_batch = kbuild.start(
+        [kbuild.Job(n, "shadow") for n in kbuild.SOURCES]
+        + shadow_mutants.jobs())
     out = {}
     print("== phase analyze: the dispatch tier on the card")
     t0 = time.perf_counter()
@@ -4715,6 +4731,51 @@ def phase_analyze(built):
               "tools, kernels and the race mutants are not written here "
               "(ROADMAP), so nothing else is checked")
         out["sanitizer"] = dict(racecheck_fused_cold_ffn=0)
+
+    print("== phase analyze: the shadow tier")
+    t0 = time.perf_counter()
+    libs = shadow_batch.wait()
+    waited = time.perf_counter() - t0
+    for (name, variant), b in sorted(libs.items()):
+        print(f"  built {name} ({variant}): {b.seconds:.1f} s")
+    t1 = time.perf_counter()
+    results = shadow.run_tier()
+    findings = [f for r in results for f in r.findings]
+    for r in results:
+        print(f"  {r.case.path}: {len(r.findings)} finding(s), "
+              f"{r.seconds:.2f} s")
+    for f in findings:
+        print(f"  FINDING {f}")
+    tier_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    mutants = shadow_mutants.run_all(timeout=120)
+    fidelity = shadow_mutants.fidelity_mutant()
+    mutants_s = time.perf_counter() - t1
+    for m in mutants:
+        print(f"  mutant {m['name']}: fired {m['rules']}, wants "
+              f"{m['want']} ({'ok' if m['ok'] else 'FAILED'}, "
+              f"{m.get('seconds', 0.0):.1f} s)")
+        if "error" in m:
+            print(m["error"])
+    print(f"  mutant {shadow_mutants.FIDELITY_MUTANT[0]}: fired "
+          f"{sorted(fidelity)}")
+    seconds = time.perf_counter() - t0
+    out["shadow"] = dict(
+        cases=len(results), findings=len(findings),
+        mutants={m["name"]: m["rules"] for m in mutants},
+        build_wait_s=waited, tier_s=tier_s, mutants_s=mutants_s,
+        seconds=seconds,
+        build_s={f"{n} ({v})": b.seconds for (n, v), b in libs.items()})
+    print(f"  [shadow tier: {len(results)} cases clean in {tier_s:.1f} s, "
+          f"{len(mutants) + 1} mutants in {mutants_s:.1f} s, part 4 "
+          f"{seconds:.1f} s with {waited:.1f} s waiting for its builds]")
+    bad = [m["name"] for m in mutants if not m["ok"]]
+    if fidelity != shadow_mutants.FIDELITY_MUTANT[1]:
+        bad.append(shadow_mutants.FIDELITY_MUTANT[0])
+    if findings or bad:
+        raise AssertionError(f"shadow tier: {len(findings)} finding(s) "
+                             f"{[str(f) for f in findings][:10]}, mutants "
+                             f"that do not fire exactly their rules {bad}")
     ops.set_launch_counts(counts)
     print(json.dumps({"analyze": out}))
     return out

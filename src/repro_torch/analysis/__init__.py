@@ -8,7 +8,8 @@ Three tiers guard invariants the tests only sample:
              trace_hazards.py (wall-clock, py-random, host-sync),
              collectives.py (collective-route, collective-fp32),
              kernel_hygiene.py (async-copy-pairing, mbarrier-init,
-             smem-budget, launch-check), protocol.py (protocol-method,
+             smem-budget, launch-check, shadow-hooks), protocol.py
+             (protocol-method,
              family-fields), drift.py (registry-drift,
              kernel-registry-drift).
 * dispatch - every served decode step of entries.py run once under a
@@ -17,10 +18,20 @@ Three tiers guard invariants the tests only sample:
              dispatch-collective-count, dispatch-error; on the card also
              dispatch-h2d and torch.cuda's sync debug mode).
 * card     - chip_smoke.py's phase analyze: the dispatch tier on the
-             card, the ptxas check of smem-budget, and sanitizer.py's
-             probe of NVIDIA's compute-sanitizer (racecheck over
-             fused_cold_ffn; blocked where the tool does not support the
-             machine's driver).
+             card, the ptxas check of smem-budget, sanitizer.py's probe of
+             NVIDIA's compute-sanitizer (racecheck over fused_cold_ffn;
+             blocked where the tool does not support the machine's
+             driver), and the shadow tier (shadow.py, the counterpart of
+             the reference's DMA race sanitizer): every registry entry
+             through a build of its CUDA source whose hooks
+             (kernels/csrc/shadow.cuh) record each shared-memory stage,
+             cp.async, mbarrier, cluster barrier and PDL edge, SHADOW_RULES
+             (shadow-read-not-ready, shadow-inflight-at-exit,
+             shadow-raw-race, shadow-war-race,
+             shadow-restart-without-wait, shadow-mbarrier,
+             shadow-dsmem-race, shadow-griddep-race, shadow-capacity,
+             shadow-fidelity), each proven by a mutant of the shipped
+             source (shadow_mutants.py).
 
     PYTHONPATH=src python -m repro_torch.analysis [--tier static|dispatch|all]
         [--self-test] [--update] [--json PATH] [paths]
@@ -33,5 +44,16 @@ from repro_torch.analysis.framework import (
     AnalysisConfig, Finding, SourceFile, all_rules, analyze_files,
     analyze_paths, apply_allowlist, checkers)
 
+
+def __getattr__(name):
+    # SHADOW_RULES without importing shadow.py with the package (it is
+    # also run as `python -m repro_torch.analysis.shadow`)
+    if name == "SHADOW_RULES":
+        from repro_torch.analysis.shadow import SHADOW_RULES
+        return SHADOW_RULES
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = ["AnalysisConfig", "Finding", "SourceFile", "all_rules",
-           "analyze_files", "analyze_paths", "apply_allowlist", "checkers"]
+           "analyze_files", "analyze_paths", "apply_allowlist", "checkers",
+           "SHADOW_RULES"]

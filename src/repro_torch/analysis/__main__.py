@@ -16,6 +16,10 @@ sources; dispatch runs every entry of entries.py on the CPU (on the card
 chip_smoke.py's phase analyze runs it, its ranks sharing cuda:0); all
 runs both.
 --self-test runs the seeded fixtures of the tiers instead of the tree.
+The shadow tier (SHADOW_RULES, analysis/shadow.py) needs a card: it runs
+in chip_smoke.py's phase analyze, `python -m repro_torch.analysis.shadow`
+and `python -m repro_torch.analysis.shadow_mutants` (its mutants); the
+self-test lists its rules and the mutant that proves each.
 
 Exit codes: 0 clean, 1 findings / stale entries / a failed self-test,
 2 internal error (an unreadable allowlist, bad arguments).
@@ -65,6 +69,13 @@ def run_self_test(tiers: tuple) -> int:
         d_ok, d_lines = run_dispatch_self_test("cpu")
         ok, n_rules, lines = ok and d_ok, n_rules + len(DISPATCH_RULES), \
             lines + d_lines
+    from repro_torch.analysis.shadow import SHADOW_RULES
+    from repro_torch.analysis.shadow_mutants import FIDELITY_MUTANT, MUTANTS
+    for rule in SHADOW_RULES:
+        by = [m.name for m in MUTANTS if rule in m.rules] + (
+            [FIDELITY_MUTANT[0]] if rule in FIDELITY_MUTANT[1] else [])
+        lines.append(f"card {rule}: shadow tier, proven on the card by "
+                     f"{', '.join(by) or 'no mutant (a bound of the shadow)'}")
     for line in lines:
         print(f"{_TAG} SELF-TEST {line}")
     print(f"{_TAG} SELF-TEST {'OK: every rule fires' if ok else 'FAILED'} "

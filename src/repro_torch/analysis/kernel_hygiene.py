@@ -7,10 +7,11 @@ block barrier) and, in `cluster_gather_ffn.cu`, with TMA bulk copies
 multicast across a thread-block cluster that complete on an mbarrier.
 Nothing at build time catches a copy that is read before the block
 synchronizes, a barrier a peer signals before it is initialised, a
-block that asks for more shared memory than the SM has, or a launch
-whose refusal is never reported. Four rules, on the source text with its
-comments blanked (a kernel's calls to the file's device helpers are
-followed, so a helper that issues copies counts at its call site):
+block that asks for more shared memory than the SM has, a launch whose
+refusal is never reported, or a synchronisation the shadow tier cannot
+see. Five rules, on the source text with its comments blanked (a
+kernel's calls to the file's device helpers are followed, so a helper
+that issues copies counts at its call site):
 
 * async-copy-pairing - in a kernel, every `cp.async` issued is waited for
                        (`cp.async.wait_all` / `wait_group`), the wait is
@@ -41,6 +42,16 @@ followed, so a helper that issues copies counts at its call site):
                        is returned: a launch refused for its shared memory
                        or its block never runs, and a later synchronize
                        does not say so.
+* shadow-hooks       - no kernel body issues a raw `__syncthreads()`, a
+                       cluster sync, `cp.async` (bulk or not), an
+                       `mbarrier.` instruction, `griddepcontrol` or a
+                       `bar.sync` / `barrier.cluster` of its own: each goes
+                       through a device helper of the file that also calls
+                       its hook of csrc/shadow.cuh (a `SHADOW_*` macro), and
+                       every kernel opens with SHADOW_BEGIN and closes with
+                       SHADOW_END. So a later kernel cannot step around the
+                       shadow tier (analysis/shadow.py), which sees only
+                       what the hooks record.
 """
 from __future__ import annotations
 
@@ -84,6 +95,12 @@ _PTR = re.compile(r"(?:const\s+)?[\w:<>]+\s*\*\s*(?:const\s+)?"
 _CONSTEXPR = re.compile(r"(?:static\s+)?constexpr\s+(?:int|size_t|unsigned)"
                         r"\s+([^;]+);")
 _LAUNCH = re.compile(r"<<<|cudaLaunchKernelEx\s*\(")
+# what only a hooked helper may issue (shadow-hooks)
+_RAW_SYNC = re.compile(r"__syncthreads\w*\s*\(|\bthis_cluster\s*\(\s*\)\s*\.\s*"
+                       r"sync\s*\(|\bcluster\s*\.\s*sync\s*\(|cp\.async|"
+                       r"mbarrier\.|griddepcontrol|\bbar\.sync\b|"
+                       r"barrier\.cluster")
+_HOOK = re.compile(r"\bSHADOW_\w+\s*\(")
 
 
 def _match(text: str, i: int, open_: str, close: str) -> int:
@@ -350,7 +367,7 @@ def _statements(body: str, base: int):
 class KernelHygieneChecker(Checker):
     name = "kernel-hygiene"
     rules = ("async-copy-pairing", "mbarrier-init", "smem-budget",
-             "launch-check")
+             "launch-check", "shadow-hooks")
     scope = ("src/repro_torch/kernels/csrc/",)
     langs = ("cuda",)
 
@@ -364,6 +381,37 @@ class KernelHygieneChecker(Checker):
                 out += self._mbarriers(cf, f, roles, src)
         out += self._smem(cf, src, config)
         out += self._launches(cf, src)
+        out += self._hooks(cf, src)
+        return out
+
+    # ---------------------------------------------------- shadow-hooks ----
+    def _hooks(self, cf, src) -> list:
+        out = []
+        for f in cf.functions:
+            if f.kind == "host":
+                continue
+            body = f.body(cf.code)
+            if f.kind == "global":
+                for m in _RAW_SYNC.finditer(body):
+                    out.append(Finding(
+                        "shadow-hooks", src.path,
+                        src.line_of(f.start + m.start()),
+                        f"{f.name}: raw {m.group(0).strip()!r} in a kernel "
+                        f"body: go through a device helper that calls its "
+                        f"shadow hook (csrc/shadow.cuh)"))
+                for hook in ("SHADOW_BEGIN", "SHADOW_END"):
+                    if not re.search(rf"\b{hook}\s*\(", body):
+                        out.append(Finding(
+                            "shadow-hooks", src.path, src.line_of(f.start),
+                            f"{f.name}: no {hook}(): the shadow tier cannot "
+                            f"give the kernel its slot or check its exit"))
+                continue
+            m = _RAW_SYNC.search(body)
+            if m and not _HOOK.search(body):
+                out.append(Finding(
+                    "shadow-hooks", src.path, src.line_of(f.start + m.start()),
+                    f"{f.name}: issues {m.group(0).strip()!r} without a "
+                    f"SHADOW_* hook, so the shadow build does not see it"))
         return out
 
     # ---------------------------------------------- async-copy-pairing ----

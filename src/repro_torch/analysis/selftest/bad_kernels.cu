@@ -3,7 +3,9 @@
 // on), mbarrier-init (a barrier used before its init), smem-budget (a
 // static tile past 227 KB; a 64 KB dynamic launch without the attribute),
 // launch-check (a launch whose error is never read, one whose error is
-// read but not returned). Fixture only: never built.
+// read but not returned), shadow-hooks (a helper that issues cp.async with no
+// shadow hook, raw __syncthreads in kernel bodies, kernels without
+// SHADOW_BEGIN / SHADOW_END). Fixture only: never built.
 #include <cuda_runtime.h>
 #include <cstdint>
 

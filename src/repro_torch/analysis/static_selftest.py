@@ -31,6 +31,7 @@ EXPECTED = {
     "mbarrier-init": "bad_kernels.cu",
     "smem-budget": "bad_kernels.cu",
     "launch-check": "bad_kernels.cu",
+    "shadow-hooks": "bad_kernels.cu",
     "protocol-method": "bad_handle.py",
     "family-fields": "families_bad.py",
     "registry-drift": "families_bad.py",

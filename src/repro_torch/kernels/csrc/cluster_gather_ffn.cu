@@ -65,6 +65,8 @@
 #include <cstdint>
 #include <cooperative_groups.h>
 
+#include "shadow.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -106,7 +108,13 @@ __device__ __forceinline__ int neuron_row(const int* idx, int n, int cs) {
   return idx ? idx[n / cs] * cs + n % cs : n;
 }
 
+// The helpers below are the only places of this file that issue cp.async
+// or a bulk copy, wait for either, touch an mbarrier, synchronize the block
+// or the cluster, or use programmatic dependent launch; each carries its
+// shadow hook (shadow.cuh), and every shared read and write of a staged
+// buffer goes through SH_RD / SH_WR (SH_RD_PEER for a peer's).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  SHADOW_CP_ASYNC(smem, 16);
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
                : "memory");
@@ -114,6 +122,17 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+  SHADOW_CP_WAIT();
+}
+
+__device__ __forceinline__ void block_sync() {
+  __syncthreads();
+  SHADOW_SYNC();
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cg::this_cluster().sync();
+  SHADOW_CLUSTER_SYNC();
 }
 
 // Stages `rows` rows of `width` elements (a multiple of 16 bytes) into dst
@@ -142,12 +161,12 @@ __device__ __forceinline__ void stage_rows(T* __restrict__ dst, int ldd, int row
     for (int sl = s0; sl < slots; sl += ds) {
       const int e = sl * V;
       if (p == nullptr) {
-        if (ZERO_MISSING) *reinterpret_cast<uint4*>(q + e) = make_uint4(0, 0, 0, 0);
+        if (ZERO_MISSING) SH_WR(reinterpret_cast<uint4*>(q + e)) = make_uint4(0, 0, 0, 0);
       } else if (e + V <= cols && (reinterpret_cast<uintptr_t>(p + e) & 15) == 0) {
         cp_async16(q + e, p + e);
       } else {
 #pragma unroll
-        for (int k = 0; k < V; ++k) q[e + k] = e + k < cols ? p[e + k] : from_f<T>(0.0f);
+        for (int k = 0; k < V; ++k) SH_WR(&q[e + k]) = e + k < cols ? p[e + k] : from_f<T>(0.0f);
       }
     }
   }
@@ -159,10 +178,12 @@ __device__ __forceinline__ void stage_rows(T* __restrict__ dst, int ldd, int row
 // its writes are visible. down stages its Wd rows under gate_up's tail.
 __device__ __forceinline__ void griddep_launch() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  SHADOW_GRIDDEP_LAUNCH();
 }
 
 __device__ __forceinline__ void griddep_wait() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  SHADOW_GRIDDEP_WAIT();
 }
 
 // mbarrier and bulk-copy helpers for gate_up's multicast of x (a stage of
@@ -175,15 +196,20 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  SHADOW_MBAR_INIT(bar);
 }
 
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  SHADOW_MBAR_EXPECT(bar, bytes);
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
 }
 
+// (the shadow build bounds the spin: a phase that never completes is a
+// finding, never a hang)
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  SHADOW_MBAR_WAIT_BEGIN(bar, parity);
   unsigned done = 0;
   do {
     asm volatile(
@@ -192,7 +218,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
         : "=r"(done)
         : "r"(smem_u32(bar)), "r"(parity)
         : "memory");
-  } while (!done);
+  } while (!done SHADOW_SPIN_ON);
+  SHADOW_MBAR_WAIT_END(bar, parity, done);
 }
 
 // Copies `bytes` (a multiple of 16, both addresses 16-byte aligned) from
@@ -200,6 +227,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
 // cluster named in `mask`, completing on each one's barrier `bar`.
 __device__ __forceinline__ void bulk_multicast(void* dst, const void* src, unsigned bytes,
                                                uint64_t* bar, uint16_t mask) {
+  SHADOW_MULTICAST(dst, bytes, bar, mask);
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
       " [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
@@ -217,7 +245,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 }
 
 __device__ __forceinline__ uint32_t lds32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+  return SH_RD(reinterpret_cast<const uint32_t*>(p));
 }
 
 // A fragment of m16n8k16 from a row-major tile (rows 0..15, columns k0..):
@@ -250,6 +278,7 @@ gather_gate_up_kernel(const T* __restrict__ x, const T* __restrict__ w,
   T* ws = reinterpret_cast<T*>(smem);
   T* xs = ws + (size_t)wrows * ld;
   float* red = reinterpret_cast<float*>(xs + (size_t)srows * ld);
+  SHADOW_BEGIN(kShGatherGateUp);
 
   const bool gated = R == 3;
   const int npt = gated ? 4 : 8;  // neurons per n-tile
@@ -273,8 +302,8 @@ gather_gate_up_kernel(const T* __restrict__ x, const T* __restrict__ w,
     if (threadIdx.x == 0) mbar_init(&xbar);
     const int padc = ((D + 15) & ~15) - D;
     for (int u = threadIdx.x; u < srows * padc; u += kThreads)
-      xs[(size_t)(u / padc) * ld + D + u % padc] = from_f<T>(0.0f);
-    cg::this_cluster().sync();
+      SH_WR(&xs[(size_t)(u / padc) * ld + D + u % padc]) = from_f<T>(0.0f);
+    cluster_sync();
   }
 
   // weight row j of the block: neuron nb0 + (j / 8) * npt + j % npt, part
@@ -309,7 +338,7 @@ gather_gate_up_kernel(const T* __restrict__ x, const T* __restrict__ w,
         stage_rows<T, false>(ws, ld, wrows, width, cols,
                              [&](int j) { return w_row(j, c0); });
       if (mc) {
-        if (j > 0) cg::this_cluster().sync();  // the cluster has read the last stage
+        if (j > 0) cluster_sync();  // the cluster has read the last stage
         const int rows = min(srows, B - b0);
         if (threadIdx.x == 0) mbar_expect_tx(&xbar, (unsigned)(rows * D * sizeof(T)));
         for (int i = rank + xc * (int)threadIdx.x; i < rows; i += xc * kThreads)
@@ -322,7 +351,7 @@ gather_gate_up_kernel(const T* __restrict__ x, const T* __restrict__ w,
       }
       cp_async_wait_all();
       if (mc) mbar_wait(&xbar, j & 1);
-      __syncthreads();
+      block_sync();
       if (live) {
         const T* xt = xs + (size_t)ms * 16 * ld;
         const int nk = width / 16;
@@ -364,14 +393,14 @@ gather_gate_up_kernel(const T* __restrict__ x, const T* __restrict__ w,
           for (int kk = kslice; kk < nk; kk += ksl) {
 #pragma unroll
             for (int k = kk * 16; k < kk * 16 + 16; k += 4) {
-              const float4 xa = *reinterpret_cast<const float4*>(xt + (size_t)g * ld + k);
+              const float4 xa = SH_RD(reinterpret_cast<const float4*>(xt + (size_t)g * ld + k));
               const float4 xb =
-                  *reinterpret_cast<const float4*>(xt + (size_t)(g + 8) * ld + k);
+                  SH_RD(reinterpret_cast<const float4*>(xt + (size_t)(g + 8) * ld + k));
 #pragma unroll
               for (int t = 0; t < NT; ++t) {
                 const T* wp = ws + (size_t)(t * 8 + 2 * t4) * ld + k;
-                const float4 w0 = *reinterpret_cast<const float4*>(wp);
-                const float4 w1 = *reinterpret_cast<const float4*>(wp + ld);
+                const float4 w0 = SH_RD(reinterpret_cast<const float4*>(wp));
+                const float4 w1 = SH_RD(reinterpret_cast<const float4*>(wp + ld));
                 float* r = acc[t];
                 r[0] = fmaf(xa.x, w0.x, r[0]); r[0] = fmaf(xa.y, w0.y, r[0]);
                 r[0] = fmaf(xa.z, w0.z, r[0]); r[0] = fmaf(xa.w, w0.w, r[0]);
@@ -386,7 +415,7 @@ gather_gate_up_kernel(const T* __restrict__ x, const T* __restrict__ w,
           }
         }
       }
-      __syncthreads();  // the chunk is read before the next one is staged
+      block_sync();  // the chunk is read before the next one is staged
     }
 
     // the warps' 16 x 8 sums into red[warp][t][row][col]
@@ -394,13 +423,13 @@ gather_gate_up_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
       for (int t = 0; t < NT; ++t) {
         float* r = red + ((size_t)warp * NT + t) * 128;
-        r[g * 8 + 2 * t4] = acc[t][0];
-        r[g * 8 + 2 * t4 + 1] = acc[t][1];
-        r[(g + 8) * 8 + 2 * t4] = acc[t][2];
-        r[(g + 8) * 8 + 2 * t4 + 1] = acc[t][3];
+        SH_WR(&r[g * 8 + 2 * t4]) = acc[t][0];
+        SH_WR(&r[g * 8 + 2 * t4 + 1]) = acc[t][1];
+        SH_WR(&r[(g + 8) * 8 + 2 * t4]) = acc[t][2];
+        SH_WR(&r[(g + 8) * 8 + 2 * t4 + 1]) = acc[t][3];
       }
     }
-    __syncthreads();
+    block_sync();
     // epilogue: row i of the stage, neuron q of the block; k-slices added
     // in order
     const int rows = min(srows, B - b0);
@@ -412,8 +441,8 @@ gather_gate_up_kernel(const T* __restrict__ x, const T* __restrict__ w,
       float gs = 0.0f, us = 0.0f;
       for (int s = 0; s < ksl; ++s) {
         const float* r = red + ((size_t)(m * ksl + s) * NT + t) * 128 + r16 * 8;
-        gs += r[qq];
-        if (gated) us += r[qq + 4];
+        gs += SH_RD(&r[qq]);
+        if (gated) us += SH_RD(&r[qq + 4]);
       }
       float hv = activate(gs, act);
       if (gated) hv *= us;
@@ -421,6 +450,7 @@ gather_gate_up_kernel(const T* __restrict__ x, const T* __restrict__ w,
     }
     // the next stage writes xs only after its staging; red after a barrier
   }
+  SHADOW_END();
 }
 
 // 2. down. The splits of one column tile form one thread-block cluster:
@@ -445,6 +475,7 @@ gather_down_kernel(const T* __restrict__ H, int ldh, const T* __restrict__ w,
   T* wsd = hs + (size_t)trows * ldk;                           // kc x 64
   float* red = reinterpret_cast<float*>(wsd + (size_t)kc * ldw);  // trows x 64
   cg::cluster_group cluster = cg::this_cluster();
+  SHADOW_BEGIN(kShGatherDown);
   const int sp = blockIdx.x % splits, ct = blockIdx.x / splits;
   const int c0 = ct * kDownCols;
   const int nbeg = sp * split, nend = min(K, nbeg + split);
@@ -473,10 +504,10 @@ gather_down_kernel(const T* __restrict__ H, int ldh, const T* __restrict__ w,
       });
       griddep_wait();  // H is gate_up's
       stage_rows<T, false>(hs, ldk, trows, kw, nn, [&](int i) -> const T* {
-        return b0 + i < B ? H + (size_t)(b0 + i) * ldh + n0 : nullptr;
+        return b0 + i < B ? SH_DEP(H + (size_t)(b0 + i) * ldh + n0) : nullptr;
       });
       cp_async_wait_all();
-      __syncthreads();
+      block_sync();
       const int live_m = min(m_tiles, (B - b0 + 15) / 16);  // m-tiles with rows
       if constexpr (sizeof(T) == 2) {
         // the fragments of one k-step (Wd's by ldmatrix.trans); the next
@@ -486,6 +517,7 @@ gather_down_kernel(const T* __restrict__ H, int ldh, const T* __restrict__ w,
         };
         auto load = [&](int k0, Frag& f) {
           const T* bp = wsd + (size_t)(k0 + (lane & 15)) * ldw + cw + (lane >> 4) * 8;
+          SHADOW_RD_BYTES(bp, 16);
           asm volatile(
               "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
               : "=r"(f.b[0]), "=r"(f.b[1]), "=r"(f.b[2]), "=r"(f.b[3])
@@ -519,14 +551,14 @@ gather_down_kernel(const T* __restrict__ H, int ldh, const T* __restrict__ w,
           for (int t = 0; t < 2; ++t)
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-              wv[t][e] = *reinterpret_cast<const float2*>(wsd + (size_t)(k + e) * ldw + cw +
-                                                          t * 8 + 2 * t4);
+              wv[t][e] = SH_RD(reinterpret_cast<const float2*>(wsd + (size_t)(k + e) * ldw + cw +
+                                                                t * 8 + 2 * t4));
 #pragma unroll
           for (int m = 0; m < 4; ++m) {
             if (m >= live_m) break;
             const T* hp = hs + (size_t)(m * 16 + g) * ldk + k;
-            const float4 ha = *reinterpret_cast<const float4*>(hp);
-            const float4 hb = *reinterpret_cast<const float4*>(hp + 8 * ldk);
+            const float4 ha = SH_RD(reinterpret_cast<const float4*>(hp));
+            const float4 hb = SH_RD(reinterpret_cast<const float4*>(hp + 8 * ldk));
             const float av[4] = {ha.x, ha.y, ha.z, ha.w};
             const float bv[4] = {hb.x, hb.y, hb.z, hb.w};
 #pragma unroll
@@ -542,7 +574,7 @@ gather_down_kernel(const T* __restrict__ H, int ldh, const T* __restrict__ w,
           }
         }
       }
-      __syncthreads();  // the chunk is read before the next one is staged
+      block_sync();  // the chunk is read before the next one is staged
     }
 
     // this block's tile into red[row][col]: c0, c1 at row g, columns 2 t4,
@@ -554,10 +586,10 @@ gather_down_kernel(const T* __restrict__ H, int ldh, const T* __restrict__ w,
       for (int t = 0; t < 2; ++t)
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-          red[(m * 16 + g + (q >> 1) * 8) * kDownCols + cw + t * 8 + 2 * t4 + (q & 1)] =
-              acc[m][t][q];
+          SH_WR(&red[(m * 16 + g + (q >> 1) * 8) * kDownCols + cw + t * 8 + 2 * t4 +
+                     (q & 1)]) = acc[m][t][q];
     }
-    cluster.sync();
+    cluster_sync();
     for (int e = sp * kThreads + threadIdx.x; e < trows * kDownCols; e += splits * kThreads) {
       const int b = b0 + e / kDownCols, d = c0 + e % kDownCols;
       if (b >= B || d >= D) continue;
@@ -566,15 +598,18 @@ gather_down_kernel(const T* __restrict__ H, int ldh, const T* __restrict__ w,
         float pv[8];
 #pragma unroll
         for (int j = 0; j < 8; ++j)
-          pv[j] = s0 + j < splits ? cluster.map_shared_rank(red, s0 + j)[e] : 0.0f;
+          pv[j] = s0 + j < splits
+                      ? SH_RD_PEER(cluster.map_shared_rank(red, s0 + j) + e, red + e, s0 + j)
+                      : 0.0f;
 #pragma unroll
         for (int j = 0; j < 8; ++j)
           if (s0 + j < splits) v += pv[j];
       }
       y[(size_t)b * D + d] = from_f<T>(v);
     }
-    cluster.sync();  // every block's tile is read before it is rewritten
+    cluster_sync();  // every block's tile is read before it is rewritten
   }
+  SHADOW_END();
 }
 
 template <typename T>
@@ -632,6 +667,7 @@ int launch(const void* x, const void* w, const int* idx, void* H, void* y, int B
   gcfg.attrs = gc;
   gcfg.numAttrs = 1;
   auto gate_up = n_tiles == 1 ? gather_gate_up_kernel<T, 1> : gather_gate_up_kernel<T, 2>;
+  SHADOW_PREPARE(kShGatherGateUp, gate_up, gcfg.gridDim, kThreads, gate_smem);
   cudaError_t err = cudaLaunchKernelEx(&gcfg, gate_up, xt, wt, idx, Ht, ldh, B, D, R, K, cs,
                                        act, m_tiles, chunk, xc);
   if (err == cudaSuccess) err = cudaGetLastError();
@@ -648,12 +684,15 @@ int launch(const void* x, const void* w, const int* idx, void* H, void* y, int B
   cudaLaunchConfig_t cfg = {};
   const int col_tiles = (D + kDownCols - 1) / kDownCols;
   const int row_tiles = (B + 16 * down_m_tiles - 1) / (16 * down_m_tiles);
-  cfg.gridDim = dim3(col_tiles * splits, std::min(row_tiles, kMaxGridY));
+  // row tiles past the grid's cap loop inside the block (the shadow build
+  // can lower the cap, to reach that loop at small B)
+  cfg.gridDim = dim3(col_tiles * splits, std::min(row_tiles, SHADOW_GRID_CAP(kMaxGridY)));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = down_smem;
   cfg.stream = stream;
   cfg.attrs = at;
   cfg.numAttrs = 2;
+  SHADOW_PREPARE(kShGatherDown, gather_down_kernel<T>, cfg.gridDim, kThreads, down_smem);
   err = cudaLaunchKernelEx(&cfg, gather_down_kernel<T>, (const T*)Ht, ldh, wt, idx,
                            static_cast<T*>(y), B, D, R, K, cs, down_m_tiles, kc, split,
                            splits);
@@ -693,3 +732,6 @@ const char* cluster_gather_ffn_error_string(int code) {
 }
 
 }  // extern "C"
+
+// the shadow build's cluster_gather_ffn_shadow_log / _shadow_grid_cap
+SHADOW_EXPORTS(cluster_gather_ffn)

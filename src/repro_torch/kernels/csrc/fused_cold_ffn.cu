@@ -78,6 +78,8 @@
 #include <climits>
 #include <cmath>
 
+#include "shadow.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;   // threads of a hidden, score or down block
@@ -135,7 +137,12 @@ __device__ __forceinline__ float activate(float g, int act) {
 
 // 16-byte copy from global to shared memory that completes asynchronously:
 // a thread may issue many before it waits for any (cp_async_wait_all).
+// These three helpers are the only places of this file that issue
+// cp.async, wait for it or synchronize the block; each carries its shadow
+// hook (shadow.cuh), and every shared read and write of a staged buffer
+// goes through SH_RD / SH_WR.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  SHADOW_CP_ASYNC(smem, 16);
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
                : "memory");
@@ -143,6 +150,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+  SHADOW_CP_WAIT();
+}
+
+__device__ __forceinline__ void block_sync() {
+  __syncthreads();
+  SHADOW_SYNC();
 }
 
 // Copies a rows x cols tile of a row-major array (row stride ld elements)
@@ -166,7 +179,7 @@ __device__ __forceinline__ void stage_tile(T* __restrict__ dst, int ldd,
                                      sizeof(T)));
     const int nv = (cols - head) / V;
     if (s == 0) {
-      for (int e = 0; e < head; ++e) q[e] = p[e];
+      for (int e = 0; e < head; ++e) SH_WR(&q[e]) = p[e];
     } else if (s <= nv) {
       const int e = head + (s - 1) * V;
       if ((reinterpret_cast<uintptr_t>(q + e) & 15) == 0) {
@@ -176,10 +189,10 @@ __device__ __forceinline__ void stage_tile(T* __restrict__ dst, int ldd,
         T t[V];
         memcpy(t, &v, sizeof(v));
 #pragma unroll
-        for (int k = 0; k < V; ++k) q[e + k] = t[k];
+        for (int k = 0; k < V; ++k) SH_WR(&q[e + k]) = t[k];
       }
     } else if (s == nv + 1) {
-      for (int e = head + nv * V; e < cols; ++e) q[e] = p[e];
+      for (int e = head + nv * V; e < cols; ++e) SH_WR(&q[e]) = p[e];
     }
   }
 }
@@ -197,6 +210,7 @@ hidden_kernel(const T* __restrict__ x, const T* __restrict__ A, float* __restric
               int B, int D, int r) {
   __shared__ __align__(16) T As[kHidD * kHidCols];
   __shared__ __align__(16) T xs[kHidRows * kHidD];
+  SHADOW_BEGIN(kShHidden);
   const int s = blockIdx.x;
   const int d0 = s * kHidD, dl = min(kHidD, D - d0);
   const int j0 = blockIdx.y * kHidCols, jl = min(kHidCols, r - j0);
@@ -206,17 +220,19 @@ hidden_kernel(const T* __restrict__ x, const T* __restrict__ A, float* __restric
     const int bl = min(kHidRows, B - b0);
     stage_tile(xs, kHidD, x + (size_t)b0 * D + d0, (size_t)D, bl, dl);
     cp_async_wait_all();
-    __syncthreads();
+    block_sync();
     if (j < jl) {
       for (int q = g; q < bl; q += kThreads / kHidCols) {
         const T* xq = xs + q * kHidD;
         float acc = 0.0f;
-        for (int d = 0; d < dl; ++d) acc = fmaf(to_f(xq[d]), to_f(As[d * kHidCols + j]), acc);
+        for (int d = 0; d < dl; ++d)
+          acc = fmaf(to_f(SH_RD(&xq[d])), to_f(SH_RD(&As[d * kHidCols + j])), acc);
         part[((size_t)s * B + b0 + q) * r + j0 + j] = acc;
       }
     }
-    __syncthreads();
+    block_sync();
   }
+  SHADOW_END();
 }
 
 // 2. Block (c, chunk) owns cluster c's cs columns and kScoreRows rows.
@@ -242,6 +258,7 @@ score_kernel(const float* __restrict__ part, int n_split, const T* __restrict__ 
   float* warp_max = hs + kScoreRows * r;            // kWarps
   T* Bs = reinterpret_cast<T*>(warp_max + kWarps);  // stage_rows * cs
   float* gsum = warp_max + kWarps;  // after the last stage: (n_jg - 1, kScoreRows, cs)
+  SHADOW_BEGIN(kShScore);
   const int c = blockIdx.x;
   const T* Bc = Bp + (size_t)c * cs;
   const int n_jg = max(1, kThreads / cs);
@@ -263,31 +280,31 @@ score_kernel(const float* __restrict__ part, int n_split, const T* __restrict__ 
         float v = p[0];
 #pragma unroll 8
         for (int s = 1; s < n_split; ++s) v += p[(size_t)s * B * r];
-        hs[i] = v;
+        SH_WR(&hs[i]) = v;
       }
       cp_async_wait_all();
-      __syncthreads();
+      block_sync();
 #pragma unroll
       for (int k = 0; k < kScoreCols; ++k) {
         const int col = cbase + k * kThreads;
         if (jg < n_jg && col < cs) {
           for (int j = jg; j < jl; j += n_jg) {
-            const float bv = to_f(Bs[j * cs + col]);
+            const float bv = to_f(SH_RD(&Bs[j * cs + col]));
             const float* hj = hs + j0 + j;
 #pragma unroll
             for (int q = 0; q < kScoreRows; ++q)
-              if (q < nrows) acc[k][q] = fmaf(hj[q * r], bv, acc[k][q]);
+              if (q < nrows) acc[k][q] = fmaf(SH_RD(&hj[q * r]), bv, acc[k][q]);
           }
         }
       }
-      __syncthreads();
+      block_sync();
     }
     if (jg > 0 && jg < n_jg) {           // then cs <= 128: one column a thread
 #pragma unroll
       for (int q = 0; q < kScoreRows; ++q)
-        if (q < nrows) gsum[((jg - 1) * kScoreRows + q) * cs + cbase] = acc[0][q];
+        if (q < nrows) SH_WR(&gsum[((jg - 1) * kScoreRows + q) * cs + cbase]) = acc[0][q];
     }
-    __syncthreads();
+    block_sync();
     float best = -INFINITY;              // identity for threads without a column
 #pragma unroll
     for (int k = 0; k < kScoreCols; ++k) {
@@ -298,7 +315,8 @@ score_kernel(const float* __restrict__ part, int n_split, const T* __restrict__ 
         for (int q = 0; q < kScoreRows; ++q) {
           if (q < nrows) {
             float v = acc[k][q];
-            for (int g = 1; g < n_jg; ++g) v += gsum[((g - 1) * kScoreRows + q) * cs + col];
+            for (int g = 1; g < n_jg; ++g)
+              v += SH_RD(&gsum[((g - 1) * kScoreRows + q) * cs + col]);
             scores[(size_t)(b0 + q) * Nc + (size_t)c * cs + col] = v;
             if (mask[b0 + q] > 0.0f) best = fmaxf(best, v);
           }
@@ -308,15 +326,16 @@ score_kernel(const float* __restrict__ part, int n_split, const T* __restrict__ 
     // max is exact, so the reduction order does not matter
     for (int off = 16; off > 0; off >>= 1)
       best = fmaxf(best, __shfl_down_sync(0xffffffffu, best, off));
-    if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = best;
-    __syncthreads();
+    if ((threadIdx.x & 31) == 0) SH_WR(&warp_max[threadIdx.x >> 5]) = best;
+    block_sync();
     if (threadIdx.x == 0) {
-      float m = warp_max[0];
-      for (int w = 1; w < kWarps; ++w) m = fmaxf(m, warp_max[w]);
+      float m = SH_RD(&warp_max[0]);
+      for (int w = 1; w < kWarps; ++w) m = fmaxf(m, SH_RD(&warp_max[w]));
       tile_max[(size_t)chunk * n_clusters + c] = m;
     }
-    __syncthreads();
+    block_sync();
   }
+  SHADOW_END();
 }
 
 // Lexicographic max on (value, -index): the larger value wins, equal values
@@ -349,27 +368,28 @@ __device__ __forceinline__ int select_cluster(const float* __restrict__ tile_max
     const float* p = tile_max + (size_t)g * nc_g + c;
     float m = p[0];
     for (int q = 1; q < n_chunks; ++q) m = fmaxf(m, p[(size_t)q * n_clusters]);
-    cscore[c] = m;
+    SH_WR(&cscore[c]) = m;
   }
   int bi = 0;
   for (int pass = 0; pass <= k; ++pass) {
     float bv = -INFINITY;
     bi = INT_MAX;
-    for (int c = t; c < nc_g; c += blockDim.x) argmax_combine(bv, bi, cscore[c], c);
+    for (int c = t; c < nc_g; c += blockDim.x) argmax_combine(bv, bi, SH_RD(&cscore[c]), c);
     for (int off = 16; off > 0; off >>= 1) {
       const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
       const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
       argmax_combine(bv, bi, ov, oi);
     }
     if (lane == 0) {
-      wv[pass & 1][warp] = bv;
-      wi[pass & 1][warp] = bi;
+      SH_WR(&wv[pass & 1][warp]) = bv;
+      SH_WR(&wi[pass & 1][warp]) = bi;
     }
-    __syncthreads();
-    bv = wv[pass & 1][0];
-    bi = wi[pass & 1][0];
-    for (int w = 1; w < kGateWarps; ++w) argmax_combine(bv, bi, wv[pass & 1][w], wi[pass & 1][w]);
-    if (bi % (int)blockDim.x == t) cscore[bi] = -INFINITY;
+    block_sync();
+    bv = SH_RD(&wv[pass & 1][0]);
+    bi = SH_RD(&wi[pass & 1][0]);
+    for (int w = 1; w < kGateWarps; ++w)
+      argmax_combine(bv, bi, SH_RD(&wv[pass & 1][w]), SH_RD(&wi[pass & 1][w]));
+    if (bi % (int)blockDim.x == t) SH_WR(&cscore[bi]) = -INFINITY;
   }
   return bi;
 }
@@ -457,7 +477,7 @@ __device__ __forceinline__ void stage_own(T* __restrict__ xs, int ldx, const T* 
           cp_async16(dst, src);
         } else {
 #pragma unroll
-          for (int e = 0; e < V; ++e) dst[e] = e < cols - cc ? src[e] : from_f<T>(0.0f);
+          for (int e = 0; e < V; ++e) SH_WR(&dst[e]) = e < cols - cc ? src[e] : from_f<T>(0.0f);
         }
       }
     }
@@ -503,6 +523,7 @@ gate_up_kernel(const T* __restrict__ x, const Bundles<T> w,
   __shared__ float wv[2][kGateWarps];
   __shared__ int wi[2][kGateWarps];
   __shared__ float red[kGateWarps][kGateRows][2];   // warp partials of each row's dots
+  SHADOW_BEGIN(kShGateUp);
   const int pick = blockIdx.x, i = blockIdx.y, t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
   const int g = pick / kc;
@@ -518,7 +539,7 @@ gate_up_kernel(const T* __restrict__ x, const Bundles<T> w,
   const float su = MODE == W_FP || !gated ? 0.0f : w.sc[rg + 1];
   float wg[S][V], wu[S][V];
   for (int b0 = first; b0 < B; b0 += gridDim.z * kGateRows) {
-    if (b0 != first) __syncthreads();      // the last tile's red is read
+    if (b0 != first) block_sync();      // the last tile's red is read
     const int nrows = min(kGateRows, B - b0);
     const float sv = cats && t < nrows ? scores[(size_t)(b0 + t) * Nc + col] : 1.0f;
     float ag[kGateRows], au[kGateRows];
@@ -548,7 +569,7 @@ gate_up_kernel(const T* __restrict__ x, const Bundles<T> w,
         for (int s = 0; s < S; ++s) {
           const int cc = (s * kGateThreads + t) * V;
           if (cc < dl) {
-            const uint4 v = *reinterpret_cast<const uint4*>(xq + cc);
+            const uint4 v = SH_RD(reinterpret_cast<const uint4*>(xq + cc));
             T xt[V];
             memcpy(xt, &v, sizeof(v));
 #pragma unroll
@@ -570,16 +591,16 @@ gate_up_kernel(const T* __restrict__ x, const Bundles<T> w,
         if (gated) u += __shfl_xor_sync(0xffffffffu, u, off);
       }
       if (lane == 0) {
-        red[warp][q][0] = a;
-        red[warp][q][1] = u;
+        SH_WR(&red[warp][q][0]) = a;
+        SH_WR(&red[warp][q][1]) = u;
       }
     }
-    __syncthreads();
+    block_sync();
     if (t < nrows) {
-      float a = red[0][t][0], u = red[0][t][1];
+      float a = SH_RD(&red[0][t][0]), u = SH_RD(&red[0][t][1]);
       for (int v = 1; v < kGateWarps; ++v) {
-        a += red[v][t][0];
-        u += red[v][t][1];
+        a += SH_RD(&red[v][t][0]);
+        u += SH_RD(&red[v][t][1]);
       }
       float hv = activate(a, act);
       if (gated) hv *= u;
@@ -587,6 +608,7 @@ gate_up_kernel(const T* __restrict__ x, const Bundles<T> w,
       H[(size_t)(b0 + t) * K + (size_t)pick * cs + i] = from_f<T>(hv);
     }
   }
+  SHADOW_END();
 }
 
 // 4. y[b, d] = sum_n H[b, n] * Wd[row(n), d] over the K = G*kc*cs picked
@@ -609,6 +631,7 @@ down_kernel(const T* __restrict__ H, const Bundles<T> w, const int* __restrict__
   __shared__ __align__(16) T Hs[kDownRows * kDownChunk];
   __shared__ size_t row_r[kDownChunk];   // (neuron, row R - 1) of each neuron
   __shared__ float red[kSlices * kDownRows * kDownCols];
+  SHADOW_BEGIN(kShDown);
   const int slice = threadIdx.x / kLanes;
   const int c0 = blockIdx.x * kDownCols;
   const int d = c0 + (threadIdx.x % kLanes) * V;
@@ -625,10 +648,10 @@ down_kernel(const T* __restrict__ H, const Bundles<T> w, const int* __restrict__
       for (int n = threadIdx.x; n < kl; n += kThreads) {
         const int pick = (k0 + n) / cs;
         const int i = k0 + n - pick * cs;
-        row_r[n] = ((size_t)((pick / kc) * nc_g + idx[pick]) * cs + i) * R + (R - 1);
+        SH_WR(&row_r[n]) = ((size_t)((pick / kc) * nc_g + idx[pick]) * cs + i) * R + (R - 1);
       }
       cp_async_wait_all();
-      __syncthreads();
+      block_sync();
       if (d < D) {
         for (int n0 = slice; n0 < kl; n0 += kSlices * kDownGroup) {
           float wv[kDownGroup][V];
@@ -636,7 +659,7 @@ down_kernel(const T* __restrict__ H, const Bundles<T> w, const int* __restrict__
           for (int g = 0; g < kDownGroup; ++g) {
             const int n = n0 + g * kSlices;
             if (n < kl) {
-              const size_t rr = row_r[n];
+              const size_t rr = SH_RD(&row_r[n]);
               load_w_vec<T, MODE, V>(w, rr, MODE == W_FP ? 0.0f : w.sc[rr], D, d, wv[g]);
             }
           }
@@ -647,7 +670,7 @@ down_kernel(const T* __restrict__ H, const Bundles<T> w, const int* __restrict__
 #pragma unroll
             for (int q = 0; q < kDownRows; ++q) {
               if (q < nrows) {
-                const float hv = to_f(Hs[q * kDownChunk + n]);
+                const float hv = to_f(SH_RD(&Hs[q * kDownChunk + n]));
 #pragma unroll
                 for (int e = 0; e < V; ++e) acc[q][e] = fmaf(hv, wv[g][e], acc[q][e]);
               }
@@ -655,24 +678,25 @@ down_kernel(const T* __restrict__ H, const Bundles<T> w, const int* __restrict__
           }
         }
       }
-      __syncthreads();
+      block_sync();
     }
     float* mine = red + slice * kDownRows * kDownCols + (d - c0);
 #pragma unroll
     for (int q = 0; q < kDownRows; ++q)
 #pragma unroll
-      for (int e = 0; e < V; ++e) mine[q * kDownCols + e] = acc[q][e];
-    __syncthreads();
+      for (int e = 0; e < V; ++e) SH_WR(&mine[q * kDownCols + e]) = acc[q][e];
+    block_sync();
     for (int u = threadIdx.x; u < nrows * kDownCols; u += kThreads) {
       const int q = u / kDownCols, c = u - q * kDownCols;
       if (c0 + c < D) {
-        float v = red[u];
-        for (int t = 1; t < kSlices; ++t) v += red[t * kDownRows * kDownCols + u];
+        float v = SH_RD(&red[u]);
+        for (int t = 1; t < kSlices; ++t) v += SH_RD(&red[t * kDownRows * kDownCols + u]);
         y[(size_t)(b0 + q) * D + c0 + c] = v;
       }
     }
-    __syncthreads();
+    block_sync();
   }
+  SHADOW_END();
 }
 
 template <typename T, int MODE>
@@ -687,10 +711,15 @@ int launch(const void* x, const Bundles<T>& wt, const void* A, const void* Bp, i
   const int n_chunks = (B + kScoreRows - 1) / kScoreRows;
   cudaError_t err;
 
+  // row tiles past the grid's cap loop inside the block (the shadow build
+  // can lower the cap, to reach those loops at small B)
+  const int max_rows = SHADOW_GRID_CAP(kMaxGridY);
   const int n_split = (D + kHidD - 1) / kHidD;
-  hidden_kernel<T><<<dim3(n_split, (r + kHidCols - 1) / kHidCols,
-                          min((B + kHidRows - 1) / kHidRows, kMaxGridY)),
-                     kThreads, 0, stream>>>(xt, static_cast<const T*>(A), h, B, D, r);
+  const dim3 hidden_grid(n_split, (r + kHidCols - 1) / kHidCols,
+                         min((B + kHidRows - 1) / kHidRows, max_rows));
+  SHADOW_PREPARE(kShHidden, hidden_kernel<T>, hidden_grid, kThreads, 0);
+  hidden_kernel<T><<<hidden_grid, kThreads, 0, stream>>>(xt, static_cast<const T*>(A), h, B,
+                                                         D, r);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const int stage_rows = min(r, max(1, kScoreStage / (cs * (int)sizeof(T))));
@@ -698,9 +727,11 @@ int launch(const void* x, const Bundles<T>& wt, const void* A, const void* Bp, i
   const size_t sums_bytes = (size_t)(max(1, kThreads / cs) - 1) * kScoreRows * cs * 4;
   const size_t score_smem = (kScoreRows * r + kWarps) * sizeof(float) +
                             (stage_bytes > sums_bytes ? stage_bytes : sums_bytes);
-  score_kernel<T><<<dim3(n_clusters, min(n_chunks, kMaxGridY)), kThreads, score_smem,
-                    stream>>>(h, n_split, static_cast<const T*>(Bp), ldb, mask, scores,
-                              tile_max, B, r, Nc, cs, n_clusters, stage_rows);
+  const dim3 score_grid(n_clusters, min(n_chunks, max_rows));
+  SHADOW_PREPARE(kShScore, score_kernel<T>, score_grid, kThreads, score_smem);
+  score_kernel<T><<<score_grid, kThreads, score_smem, stream>>>(
+      h, n_split, static_cast<const T*>(Bp), ldb, mask, scores, tile_max, B, r, Nc, cs,
+      n_clusters, stage_rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const size_t gate_smem = (size_t)kGateRows * GateChunk<T>::cols * sizeof(T) +
@@ -710,17 +741,18 @@ int launch(const void* x, const Bundles<T>& wt, const void* A, const void* Bp, i
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)gate_smem)) != cudaSuccess)
     return (int)err;
-  gate_up_kernel<T, MODE><<<dim3(G * kc, cs, min((B + kGateRows - 1) / kGateRows, kMaxGridY)),
-                            kGateThreads, gate_smem, stream>>>(xt, wt, tile_max, idx, scores,
-                                                     static_cast<T*>(H), B, D, R, nc_g, cs,
-                                                     kc, Nc, K, n_chunks, n_clusters, act,
-                                                     cats);
+  const dim3 gate_grid(G * kc, cs, min((B + kGateRows - 1) / kGateRows, max_rows));
+  SHADOW_PREPARE(kShGateUp, (gate_up_kernel<T, MODE>), gate_grid, kGateThreads, gate_smem);
+  gate_up_kernel<T, MODE><<<gate_grid, kGateThreads, gate_smem, stream>>>(
+      xt, wt, tile_max, idx, scores, static_cast<T*>(H), B, D, R, nc_g, cs, kc, Nc, K,
+      n_chunks, n_clusters, act, cats);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  down_kernel<T, MODE><<<dim3((D + kDownCols - 1) / kDownCols,
-                              min((B + kDownRows - 1) / kDownRows, kMaxGridY)),
-                         kThreads, 0, stream>>>(static_cast<const T*>(H), wt, idx, y, B, D,
-                                                R, nc_g, cs, kc, K);
+  const dim3 down_grid((D + kDownCols - 1) / kDownCols,
+                       min((B + kDownRows - 1) / kDownRows, max_rows));
+  SHADOW_PREPARE(kShDown, (down_kernel<T, MODE>), down_grid, kThreads, 0);
+  down_kernel<T, MODE><<<down_grid, kThreads, 0, stream>>>(static_cast<const T*>(H), wt, idx, y,
+                                                           B, D, R, nc_g, cs, kc, K);
   return (int)cudaGetLastError();
 }
 
@@ -779,3 +811,6 @@ const char* fused_cold_ffn_error_string(int code) {
 }
 
 }  // extern "C"
+
+// the shadow build's fused_cold_ffn_shadow_log / _shadow_grid_cap
+SHADOW_EXPORTS(fused_cold_ffn)

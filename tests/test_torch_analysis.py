@@ -95,19 +95,18 @@ def test_capture_roots_resolve():
 
 # mutations of the real sources, each of which its rule must catch
 CU_MUTATIONS = [
-    ("fused_cold_ffn.cu", "    cp_async_wait_all();\n    __syncthreads();\n",
+    ("fused_cold_ffn.cu", "    cp_async_wait_all();\n    block_sync();\n",
      "    cp_async_wait_all();\n", "async-copy-pairing"),
     ("fused_cold_ffn.cu",
-     "                     kThreads, 0, stream>>>(xt, static_cast<const T*>(A), "
-     "h, B, D, r);\n  if ((err = cudaGetLastError()) != cudaSuccess) return "
-     "(int)err;\n",
-     "                     kThreads, 0, stream>>>(xt, static_cast<const T*>(A), "
-     "h, B, D, r);\n", "launch-check"),
+     "                                                         D, r);\n"
+     "  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;\n",
+     "                                                         D, r);\n",
+     "launch-check"),
     ("cluster_gather_ffn.cu",
-     "      xs[(size_t)(u / padc) * ld + D + u % padc] = from_f<T>(0.0f);\n"
-     "    cg::this_cluster().sync();\n",
-     "      xs[(size_t)(u / padc) * ld + D + u % padc] = from_f<T>(0.0f);\n",
-     "mbarrier-init"),
+     "      SH_WR(&xs[(size_t)(u / padc) * ld + D + u % padc]) = "
+     "from_f<T>(0.0f);\n    cluster_sync();\n",
+     "      SH_WR(&xs[(size_t)(u / padc) * ld + D + u % padc]) = "
+     "from_f<T>(0.0f);\n", "mbarrier-init"),
     ("cluster_gather_ffn.cu", "      if (mc) mbar_wait(&xbar, j & 1);\n", "",
      "async-copy-pairing"),
 ]

@@ -7,8 +7,10 @@ profiled engine graphed and eager, and calibration under captured
 graphs; fused_cold_ffn on each gloo rank's own groups, ranks sharing
 the card; a train step on the card against the CPU and the checkpoint
 round trip on the card; compute-sanitizer's racecheck over
-fused_cold_ffn. Marked `gpu`: without a card each test skips with a
-reason.
+fused_cold_ffn; the shadow tier (every registry entry clean under the
+shadow build, its outputs bit-identical to the normal build's) and its
+mutants (each fires exactly its rules). Marked `gpu`: without a card
+each test skips with a reason.
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -1089,3 +1091,34 @@ def test_fused_cold_ffn_under_racecheck(cuda):
     if rep.blocked:
         pytest.skip(f"compute-sanitizer runs no tool here: {rep.blocked}")
     assert not rep.hazards, [str(f) for f in rep.findings()]
+
+
+# ------------------------------------------------------- the shadow tier ----
+
+from repro_torch.analysis import shadow, shadow_mutants  # noqa: E402
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", [c.path for c in shadow.CASES])
+def test_shadow_tier_case_is_clean(cuda, path):
+    """The registry entry under the shadow build at the case's shapes: no
+    finding (every shared stage, cp.async, mbarrier, cluster barrier and
+    PDL edge checked), and its outputs bit-identical to the normal
+    build's on the same inputs."""
+    res = shadow.run_case(shadow.BY_PATH[path])
+    assert res.findings == [], [str(f) for f in res.findings]
+
+
+@pytest.mark.gpu
+def test_shadow_mutants_fire_exactly_their_rules(cuda):
+    """Each mutant of the shipped sources, in a subprocess of its own,
+    fires exactly the rules it names; none hangs; a perturbed output
+    fires shadow-fidelity."""
+    from repro_torch.kernels import build
+    build.start(shadow_mutants.jobs()).wait()
+    results = shadow_mutants.run_all(timeout=300)
+    bad = [(r["name"], r["rules"], r["want"], r.get("error", ""))
+           for r in results if not r["ok"]]
+    assert not bad, bad
+    assert shadow_mutants.fidelity_mutant() == \
+        shadow_mutants.FIDELITY_MUTANT[1]
