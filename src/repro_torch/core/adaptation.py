@@ -20,6 +20,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.clusters import HybridPlan
 from repro_torch.core.planner import ExecutionPlan
 from repro_torch.kernels import ops
@@ -84,25 +85,26 @@ class GraphedStep:
         if tokens.device.type != "cuda":
             raise ValueError(f"a CUDA graph needs CUDA buffers, not "
                              f"{tokens.device}")
-        counts = ops.launch_counts()
-        current = torch.cuda.current_stream(tokens.device)
-        side = torch.cuda.Stream(tokens.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            scratch = {k: v.clone() for k, v in cache.items()}
-            self.step(model, tokens, scratch, mask)
-        current.wait_stream(side)
-        del scratch
-        warm = ops.launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool(), stream=side):
-            logits, _, cidx = self.step(model, tokens, cache, mask)
-        self.warmup_launches = _minus(warm, counts)
-        self.launches = _minus(ops.launch_counts(), warm)
-        ops.set_launch_counts(counts)
-        self.graph, self.logits, self.cidx = graph, logits, cidx
-        self._bound = self._buffers(tokens, cache, mask)
-        self.captures += 1
+        with obs.always("decoder.capture"):
+            counts = ops.launch_counts()
+            current = torch.cuda.current_stream(tokens.device)
+            side = torch.cuda.Stream(tokens.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                scratch = {k: v.clone() for k, v in cache.items()}
+                self.step(model, tokens, scratch, mask)
+            current.wait_stream(side)
+            del scratch
+            warm = ops.launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._pool(), stream=side):
+                logits, _, cidx = self.step(model, tokens, cache, mask)
+            self.warmup_launches = _minus(warm, counts)
+            self.launches = _minus(ops.launch_counts(), warm)
+            ops.set_launch_counts(counts)
+            self.graph, self.logits, self.cidx = graph, logits, cidx
+            self._bound = self._buffers(tokens, cache, mask)
+            self.captures += 1
 
     def __call__(self, model, tokens, cache, mask):
         if self.graph is None:

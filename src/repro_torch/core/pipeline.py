@@ -18,7 +18,6 @@ Two parts:
 from __future__ import annotations
 
 import heapq
-import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
@@ -176,12 +175,8 @@ class PrefetchExecutor:
     def __init__(self):
         self._pool = ThreadPoolExecutor(max_workers=1,
                                         thread_name_prefix="neuron-io")
-        self._lock = threading.Lock()
-        self.submitted = 0
 
     def submit(self, fn, *args, **kwargs):
-        with self._lock:
-            self.submitted += 1
         return self._pool.submit(fn, *args, **kwargs)
 
     def shutdown(self):

@@ -57,6 +57,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.adaptation import BucketedDecoder, bucket_for, \
     stepped_plan
@@ -277,11 +278,12 @@ class ServeEngine:
                 if self.cuda_graphs else "eager"
 
         # ---- storage plane ----
-        self.storage = StoragePlane(
-            cfg, model, plan, spec=spec, storage=storage,
-            offload_ratio=offload_ratio, hw=hw, timing=timing,
-            n_compute_workers=n_compute_workers, prefetch=prefetch,
-            n_shards=n_shards, n_replicas=n_replicas)
+        with obs.always("setup.plane"):
+            self.storage = StoragePlane(
+                cfg, model, plan, spec=spec, storage=storage,
+                offload_ratio=offload_ratio, hw=hw, timing=timing,
+                n_compute_workers=n_compute_workers, prefetch=prefetch,
+                n_shards=n_shards, n_replicas=n_replicas)
         self.sched = BatchScheduler(eos_id=eos_id)
         self.ctx_budget = ctx_budget
         self.clock_s = 0.0                 # modeled serving clock
@@ -490,24 +492,26 @@ class ServeEngine:
                 for req in group:
                     self.sched.admit(req, self.clock_s)
                 continue
-            tokens = torch.from_numpy(
-                np.stack([r.prompt for r in group]).astype(np.int32)).to(
-                    self.device)
             # the model's own layers (dense FFN or MoE) run the prompt
-            logits, cache = dense.prefill(self.model, tokens,
-                                          max_len=self.arena.max_len,
-                                          shard=self.shard)
-            for j, req in enumerate(group):
-                self.sched.admit(req, self.clock_s)
-                self.arena.alloc(req.uid)
-                row = {
-                    "k": cache["k"][:, j:j + 1],
-                    "v": cache["v"][:, j:j + 1],
-                    "kv_pos": cache["kv_pos"][j:j + 1],
-                    "length": cache["length"][j:j + 1],
-                }
-                slot = self.arena.write(req.uid, row)
-                self._last[slot] = logits[j, -1]
+            with obs.span("engine.prefill"):
+                tokens = torch.from_numpy(np.stack(
+                    [r.prompt for r in group]).astype(np.int32)).to(
+                        self.device)
+                logits, cache = dense.prefill(self.model, tokens,
+                                              max_len=self.arena.max_len,
+                                              shard=self.shard)
+            with obs.span("engine.kv_write"):
+                for j, req in enumerate(group):
+                    self.sched.admit(req, self.clock_s)
+                    self.arena.alloc(req.uid)
+                    row = {
+                        "k": cache["k"][:, j:j + 1],
+                        "v": cache["v"][:, j:j + 1],
+                        "kv_pos": cache["kv_pos"][j:j + 1],
+                        "length": cache["length"][j:j + 1],
+                    }
+                    slot = self.arena.write(req.uid, row)
+                    self._last[slot] = logits[j, -1]
 
     # ------------------------------------------------------ decode loop ----
     def _next_replica(self) -> Optional[int]:
@@ -533,23 +537,30 @@ class ServeEngine:
         boundary) -> sample+decode -> price -> complete. A replica-routed
         engine steps the replica whose next event is earliest."""
         if self.replicas is not None:
-            i = self._next_replica()
-            if i is None:
-                return None
-            rep = self.replicas[i]
-            r = rep.step()
-            if r is None:
-                return None
-            self.clock_s = max(e.clock_s for e in self.replicas)
-            self.router.batch_history.append(self.router.batch_size)
-            r.stats.replica = i
-            g = self.router.to_global
-            return StepResult(
-                stats=r.stats,
-                tokens={g(i, u): t for u, t in r.tokens.items()},
-                admitted=[g(i, u) for u in r.admitted],
-                finished=[g(i, u) for u in r.finished],
-                replica=i, t_s=rep.clock_s)
+            return self._step_routed()
+        with obs.span("engine.step"):
+            return self._step_one()
+
+    def _step_routed(self) -> Optional[StepResult]:
+        i = self._next_replica()
+        if i is None:
+            return None
+        rep = self.replicas[i]
+        r = rep.step()
+        if r is None:
+            return None
+        self.clock_s = max(e.clock_s for e in self.replicas)
+        self.router.batch_history.append(self.router.batch_size)
+        r.stats.replica = i
+        g = self.router.to_global
+        return StepResult(
+            stats=r.stats,
+            tokens={g(i, u): t for u, t in r.tokens.items()},
+            admitted=[g(i, u) for u in r.admitted],
+            finished=[g(i, u) for u in r.finished],
+            replica=i, t_s=rep.clock_s)
+
+    def _step_one(self) -> Optional[StepResult]:
         sched = self.sched
         if not sched.has_work:
             return None
@@ -559,7 +570,8 @@ class ServeEngine:
             if nxt is not None and nxt > self.clock_s:
                 self.clock_s = nxt
         room = self.max_slots - len(sched.running)
-        admits = sched.pop_admissible(self.clock_s, room)
+        with obs.span("engine.admit"):
+            admits = sched.pop_admissible(self.clock_s, room)
         n_active = len(sched.running) + len(admits)
         if n_active == 0:
             return None
@@ -576,22 +588,24 @@ class ServeEngine:
                 self._publish[0].broadcast_object((toks, trace),
                                                   src=self._publish[1])
 
-        ctx = float(np.mean([sched.sequences[u].prompt_len
-                             + sched.sequences[u].n_generated
-                             for u in sched.running]))
-        st = self.storage.step(trace, plan_b, n_active, ctx)
-        self.clock_s += st.effective_s
+        # the storage plane's step (plane.step) nests in engine.complete
+        with obs.span("engine.complete"):
+            ctx = float(np.mean([sched.sequences[u].prompt_len
+                                 + sched.sequences[u].n_generated
+                                 for u in sched.running]))
+            st = self.storage.step(trace, plan_b, n_active, ctx)
+            self.clock_s += st.effective_s
 
-        tok_map = {u: int(t) for u, t in zip(sched.running, toks)}
-        for u in sched.running:
-            req = sched.sequences[u]
-            if req.first_token_time is None:
-                req.first_token_time = self.clock_s
-        done = sched.step(tok_map)
-        for u in done:
-            sched.sequences[u].finish_time = self.clock_s
-            if not self.mirror:
-                self.arena.release(u)
+            tok_map = {u: int(t) for u, t in zip(sched.running, toks)}
+            for u in sched.running:
+                req = sched.sequences[u]
+                if req.first_token_time is None:
+                    req.first_token_time = self.clock_s
+            done = sched.step(tok_map)
+            for u in done:
+                sched.sequences[u].finish_time = self.clock_s
+                if not self.mirror:
+                    self.arena.release(u)
         return StepResult(stats=st, tokens=tok_map,
                           admitted=[r.uid for r in admits], finished=done,
                           t_s=self.clock_s)
@@ -615,7 +629,8 @@ class ServeEngine:
                      + sched.sequences[u].max_new for u in sched.queue]
         reach = bucket_for(min(n_active + len(sched.queue), self.max_slots),
                            buckets)
-        self._ensure_arena(b, max(need, default=0), reach)
+        with obs.span("engine.admit"):
+            self._ensure_arena(b, max(need, default=0), reach)
         if admits:
             self._admit(admits)
         n_slots = self.arena.n_slots
@@ -623,26 +638,36 @@ class ServeEngine:
         plan_b, step_fn = self.decoder.executable_for(n_active)
         rows = self.arena.rows_for(sched.running)
         if self.shard is None or self.shard.rank == 0:
-            idx = torch.tensor(rows, dtype=torch.long, device=self.device)
-            toks = sample_tokens(self._last.index_select(0, idx),
-                                 self._temperature,
-                                 generator=self.generator).cpu()
+            with obs.span("engine.sample"):
+                idx = torch.tensor(rows, dtype=torch.long,
+                                   device=self.device)
+                toks = sample_tokens(self._last.index_select(0, idx),
+                                     self._temperature,
+                                     generator=self.generator)
+            with obs.span("engine.read_tokens"):
+                toks = toks.cpu()
         else:
             toks = torch.empty((len(rows),), dtype=torch.int32)
         if self.shard is not None:
             self.shard.broadcast(toks)
-        toks = toks.numpy()
-        feed = np.zeros((n_slots,), np.int32)
-        feed[rows] = toks
-        mask = np.zeros((n_slots,), bool)
-        mask[rows] = True
-        tokens, live = self._tokens[:n_slots], self._mask[:n_slots]
-        tokens.copy_(torch.from_numpy(feed)[:, None])
-        live.copy_(torch.from_numpy(mask))
-        logits, _, cidx = step_fn(self.model, tokens, self.arena.cache, live)
-        # a graph's outputs are overwritten by the next replay: copy out
-        self._last.copy_(logits[:, 0])
-        return plan_b, toks, cidx.cpu().numpy()
+        with obs.span("engine.feed"):
+            toks = toks.numpy()
+            feed = np.zeros((n_slots,), np.int32)
+            feed[rows] = toks
+            mask = np.zeros((n_slots,), bool)
+            mask[rows] = True
+            tokens, live = self._tokens[:n_slots], self._mask[:n_slots]
+            tokens.copy_(torch.from_numpy(feed)[:, None])
+            live.copy_(torch.from_numpy(mask))
+        with obs.span("engine.replay"):
+            logits, _, cidx = step_fn(self.model, tokens, self.arena.cache,
+                                      live)
+        with obs.span("engine.read_trace"):
+            # a graph's outputs are overwritten by the next replay: copy
+            # them out
+            self._last.copy_(logits[:, 0])
+            trace = cidx.cpu().numpy()
+        return plan_b, toks, trace
 
     def cancel(self, uids):
         """Force-finish requests. Running requests release their KV slot

@@ -31,6 +31,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.cache import NeuronCache
 from repro_torch.core.clusters import HybridPlan
 from repro_torch.core.coldstore import ColdStore
@@ -599,18 +600,26 @@ class StoragePlane:
         the compute; the step's effective time is the slowest shard
         (the psum barrier at each layer's output keeps devices in
         lock-step at layer granularity)."""
-        cfg, spec = self.cfg, self.spec
-        L = cfg.num_layers
-        cs = self.cs
-        S = self.n_shards
-        comp_shard = self._compute_time(plan, batch, ctx_len,
-                                        shard_frac=1.0 / S)
-        base = [(c.stats.hits, c.stats.misses) for c in self.caches]
+        with obs.span("plane.step"):
+            S = self.n_shards
+            comp_shard = self._compute_time(plan, batch, ctx_len,
+                                            shard_frac=1.0 / S)
+            base = [(c.stats.hits, c.stats.misses) for c in self.caches]
+            with obs.span("plane.lookup"):
+                per_layer = self._lookup(trace, plan)
+            with obs.span("plane.price"):
+                tasks, io_raw = self._price(per_layer, comp_shard)
+            with obs.span("plane.simulate"):
+                return self._simulate(tasks, io_raw, comp_shard, base,
+                                      batch)
 
-        # Phase 1 — cache lookups, strictly in layer order (the LRU
-        # state sequence is part of the modeled behavior), shard-split.
+    def _lookup(self, trace, plan: HybridPlan) -> list:
+        """Phase 1 — cache lookups, strictly in layer order (the LRU
+        state sequence is part of the modeled behavior), shard-split.
+        Per layer: (ids per shard, misses per shard)."""
+        spec = self.spec
         per_layer = []
-        for l in range(L):
+        for l in range(self.cfg.num_layers):
             if spec.use_predictor:
                 cold_ids = self._trace_neuron_ids(trace[l], plan)
                 if spec.pinned_hot:
@@ -633,11 +642,15 @@ class StoragePlane:
                 misses_ps.append(misses)
                 n_ids_ps.append(len(part))
             per_layer.append((n_ids_ps, misses_ps))
+        return per_layer
 
-        # Phase 2 — fetch + price. With the prefetcher, layer l+1's
-        # misses are submitted to the I/O thread before layer l's fetch
-        # is consumed, so real data movement overlaps pricing; the
-        # modeled per-layer I/O times are identical either way.
+    def _price(self, per_layer: list, comp_shard: float):
+        """Phase 2 — fetch + price. With the prefetcher, layer l+1's
+        misses are submitted to the I/O thread before layer l's fetch
+        is consumed, so real data movement overlaps pricing; the
+        modeled per-layer I/O times are identical either way. Returns
+        (cluster tasks per shard, raw I/O seconds per shard)."""
+        L, S, cs = self.cfg.num_layers, self.n_shards, self.cs
         futures = {}
         if self.prefetcher is not None:
             futures[0] = self.prefetcher.submit(
@@ -651,7 +664,8 @@ class StoragePlane:
                 if l + 1 < L:
                     futures[l + 1] = self.prefetcher.submit(
                         self._fetch_layer, l + 1, per_layer[l + 1][1])
-                io_ps = futures.pop(l).result()
+                with obs.span("plane.io_wait"):
+                    io_ps = futures.pop(l).result()
             else:
                 io_ps = self._fetch_layer(l, misses_ps)
             for s in range(S):
@@ -666,7 +680,13 @@ class StoragePlane:
                     tasks[s].append(ClusterTask(
                         l, c, comp_c,
                         io_c if c < n_miss_clusters else 0.0))
+        return tasks, io_raw
 
+    def _simulate(self, tasks, io_raw, comp_shard: float, base: list,
+                  batch: int) -> TokenStats:
+        """Phase 3 — each shard's cluster pipeline and cache counts; the
+        step's TokenStats."""
+        spec, S = self.spec, self.n_shards
         shards = []
         for s in range(S):
             if spec.pipeline == "none":
